@@ -1,9 +1,7 @@
-"""Benchmark driver. Prints ONE JSON line:
-  {"metric": "...", "value": N, "unit": "...", "vs_baseline": N}
-
-Headline metric: forward render throughput at 1080p on one chip (Mpix/s),
-vs_baseline against the 60 Mpix/s interactive north star (BASELINE.md — the
-reference publishes no numbers). Extra metrics go to stderr.
+"""Benchmark driver. Prints ONE JSON line with the forward render throughput
+at 1080p (Mpix/s), forward+backward and bin+sort rates, and the device
+they were measured on (platform, device_kind, device count). Needs a GPU.
+Detail goes to stderr.
 """
 
 from gaussian_splatting_web_tpu import bench_lib

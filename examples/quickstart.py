@@ -1,9 +1,10 @@
 """Quickstart: render a reference scene, differentiate through the render,
-and take one training step. Runs on CPU or TPU.
+and take one training step. Runs on the CPU or a GPU.
 
     python examples/quickstart.py [path/to/scene.ply]
 """
 
+import os
 import sys
 
 import jax
@@ -22,7 +23,9 @@ from gaussian_splatting_web_tpu.utils.image import write_png
 
 
 def main():
-    ply = sys.argv[1] if len(sys.argv) > 1 else "/root/reference/public/pc_short.ply"
+    ply = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", "tests", "data",
+        "pc_short.ply")
     cloud = jax.device_put(read_ply(ply))
     print(f"{cloud.num_gaussians} gaussians, SH degree {cloud.sh_degree}")
 

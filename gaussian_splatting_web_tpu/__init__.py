@@ -1,16 +1,17 @@
-"""gaussian_splatting_web_tpu — a TPU-native differentiable 3D Gaussian splatting framework.
+"""gaussian_splatting_web_tpu — a differentiable 3D Gaussian splatting
+renderer and trainer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
-`Lontoone/gaussian-splatting-web` WebGPU viewer (reference mounted at
-/root/reference), extended with autodiff, training, and multi-chip
-(pjit/shard_map) execution.
+`Lontoone/gaussian-splatting-web` WebGPU viewer, extended with autodiff,
+training, and multi-device (shard_map) execution. It runs on the CPU and
+on NVIDIA GPUs.
 
-Layer map (mirrors SURVEY.md §1 of the reference, re-architected TPU-first):
+Layer map (mirrors SURVEY.md §1 of the reference):
 
   io/        PLY parsing/writing + cameras.json        (ref: src/ply.ts, src/packing.ts)
   core/      GaussianCloud pytree, camera math         (ref: src/camera.ts)
   ops/       projection, SH, sort/binning, rasterize   (ref: src/shaders.ts,
-             — jitted JAX + Pallas kernels              src/simple_render.ts,
+             — jitted JAX + a Triton compositor kernel  src/simple_render.ts,
                                                         webgpu-radix-sort)
   ref/       NumPy CPU oracle renderer                 (ref: testBitonic CPU-ref pattern,
                                                         src/bitonic.ts:239-288)

@@ -174,7 +174,6 @@ def cmd_render(args):
 
 
 def cmd_bench(args):
-    os.environ.setdefault("GSWT_BENCH_PLY", args.ply or "")
     from . import bench_lib
 
     bench_lib.run(ply=args.ply, width=args.width, height=args.height)
@@ -345,7 +344,7 @@ def main(argv=None):
     sp.add_argument("--out", default="trained.ply")
     sp.add_argument("--iterations", type=int, default=7000)
     sp.add_argument("--limit", type=int, default=0, help="max training views")
-    sp.add_argument("--checkpoint", help="orbax checkpoint dir: the LOOP "
+    sp.add_argument("--checkpoint", help="checkpoint dir: the LOOP "
                     "state (params+opt+iteration) is saved here every "
                     "--checkpoint-every iterations and resumed from when "
                     "present; the final TrainState is written to "

@@ -5,7 +5,7 @@ time (SURVEY.md §5 "Config"; e.g. low-pass 0.3 at simple_render.ts:295-296,
 alpha cutoff 1/255 at simple_render.ts:191, max splat 4096 px at
 simple_render.ts:312-314, znear/zfar 0.2/100 at camera.ts:484). Here the same
 constants live in one frozen dataclass that specializes jitted functions and
-Pallas kernels through closure — the TPU analogue of shader-string
+the compositor kernel through closure — the JAX analogue of shader-string
 interpolation.
 """
 
@@ -24,15 +24,15 @@ class RenderConfig:
     """
 
     # --- tiling -----------------------------------------------------------
-    # Defaults ARE the benched configuration (VERDICT r1 item 3): what
-    # render()/CLI/viewer ship is exactly what bench.py measures.
-    tile_size: int = 16          # pixels per tile side (16x16 = 256 px, 2x128 lanes)
+    # Defaults ARE the benched configuration: what render()/CLI/viewer
+    # ship is exactly what bench.py measures.
+    tile_size: int = 16          # pixels per tile side (16x16 = 256 px)
     max_dup: int = 16            # max tiles a single gaussian may be binned into
     tile_chunk: int = 32         # tiles rasterized per lax.map step
     max_per_tile: int = 1024     # per-tile splat list capacity (static shape cap)
     depth_bits: int = 19         # >0: packed single-key sort keeping this
-                                 # many depth bits below the tile id (~1.5x
-                                 # faster binning; splats whose depths agree
+                                 # many depth bits below the tile id (one
+                                 # sort key instead of two; splats whose depths agree
                                  # to ~2⁻¹³ relative may reorder — visually
                                  # indistinguishable, and the compositor is
                                  # order-exact for whatever order it gets).
@@ -44,11 +44,9 @@ class RenderConfig:
                                  # than it spill to compacted tiers
                                  # (tier_mid, then max_dup). 0 = single
                                  # tier. 2 covers ~75% of splats at the 1M
-                                 # bench scene (CPU footprint histogram);
-                                 # v5e lax.sort cost falls superlinearly
-                                 # below ~4M elements, so the smaller slot
-                                 # array cuts binning 41.6 → ~24 ms
-                                 # (tools/sortexp.py).
+                                 # bench scene (CPU footprint histogram),
+                                 # so the sort sees far fewer dead slots
+                                 # than with max_dup slots per splat.
     tier_mid: int = 4            # optional middle compacted tier width
                                  # (tier_split < tier_mid < max_dup to
                                  # enable; 99.4% of bench splats fit in 4)
@@ -70,12 +68,11 @@ class RenderConfig:
                                  # of the bounding rect the cutoff level-set
                                  # ellipse misses are dropped (output-exact;
                                  # only active when radius_sigma == 0).
-                                 # Off by default: at the 1M-splat/1080p bench
-                                 # it cuts live pairs 18% but the per-slot
-                                 # edge-minimization adds ~16 ms to binning vs
-                                 # ~2 ms saved compositing (v5e measurement) —
-                                 # worth enabling only for scenes with large
-                                 # anisotropic splats.
+                                 # At the 1M-splat/1080p bench scene it cuts
+                                 # live pairs by 18%, at the price of a
+                                 # per-slot edge minimization in binning;
+                                 # off until a measurement on the card says
+                                 # the trade pays.
 
     # --- EWA / splat constants (parity with the reference shader) --------
     lowpass: float = 0.3         # cov2d diagonal dilation  (simple_render.ts:295-296)
@@ -103,93 +100,23 @@ class RenderConfig:
     # Scene STORAGE dtype (GaussianCloud.with_storage_dtype): 'float32' for
     # bit-parity with the reference; 'bfloat16' stores SH/scale/quat/opacity
     # in bf16 (positions stay f32) — scene memory ≈ halves, compute still
-    # decodes to f32 (projection.py casts at use). The compositor kernels'
-    # internal precision policy is independent and fixed: bf16x2/x3 MXU
-    # passes with f32 accumulation (ops/pallas/raster.py).
+    # decodes to f32 (projection.py casts at use). Compositing always runs
+    # in f32.
     dtype: str = "float32"
 
-    # Pair-payload precision: with pack_fields the seven precision-tolerant
-    # splat fields (conic a/b/c, r, g, b, opacity) ride the binning sort
-    # bf16-rounded and PACKED IN PAIRS into u32 payloads (mean2d stays
-    # f32) — 4 payload arrays instead of 9. Measured on v5e at the 1M
-    # bench: lax.sort payloads cost ~3.9 ms EACH at 4.25M slots
-    # (tools/profile_payloads.py; the round-1 "payloads are nearly free"
-    # measurement let XLA's sort simplifier DCE unconsumed payloads), so
-    # packing saves ~12-20 ms per frame. The XLA compositor applies the
-    # same bf16 round-trip so both paths stay semantically identical.
-    # bf16 keeps 8 mantissa bits: worst-case alpha shift ~1% right at the
-    # 1/255 cutoff boundary, image abs error ~1e-3 — below the kernel's
-    # existing f32-vs-MXU noise. False = exact f32 payloads (oracle mode).
-    pack_fields: bool = True
-    # mean2d payload as ONE u32 of tile-relative 1/32-px fixed point
-    # (range ±1024 px, max error 1/64 px) instead of two f32 payloads —
-    # one fewer sort payload (~3.9 ms at the 1M bench). The fused kernel
-    # works in tile-local coordinates anyway; both compositor paths apply
-    # the identical quantization (ops.sort.quantize_mean16, straight-
-    # through gradient). Only active when pack_fields is on. Splats binned
-    # to tiles > 1024 px from their center clamp — only radius > 1024 px
-    # monsters, whose footprints the max_dup cap already truncates.
-    pack_mean16: bool = True
-    # Same trick for the backward fold: pair gradients sort back to dense
-    # slot order bf16-packed (5 u32 payloads instead of 9 f32). Error is
-    # ~0.2% of each pair gradient, zero-mean; the parity gate measures
-    # scale-relative error which stays well under the 1% gate. NOTE: this
-    # rounds the mean2d GRADIENT rows too (the mean2d VALUES stay f32 in
-    # the forward payloads); if training quality ever regresses on
-    # subpixel-splat scenes, set pack_grads=False or move the mean2d grad
-    # rows to an f32 payload pair (ADVICE r2 item 4).
-    pack_grads: bool = True
-
-    # --- kernel selection -------------------------------------------------
-    # 'auto': fused Pallas compositor on TPU, portable XLA path elsewhere.
-    use_pallas: str = "auto"  # 'auto' | 'always' | 'never'
-
-    # Binning architecture for the fused path (round 4):
-    #   'dup':    the duplicated-slot binning sort (ops/sort.bin_splats
-    #             + ops/pallas/raster.py). Default.
-    #   'anchor': ONE sort of N + big-dup entries (key = tile<<16 | d16);
-    #             the kernel touch-filters each tile's two anchor ranges
-    #             and depth-orders candidates in VMEM with an exact
-    #             one-hot merge (ops/pallas/anchor.py). Binning itself is
-    #             8× cheaper (3.2 ms vs 24 at the 1M/1080p bench) but the
-    #             per-tile rank/merge is VPU-compare-bound (~65 ms at 1M
-    #             — tools/profile_anchor.py), so the dup path wins end to
-    #             end on current hardware; kept as a correct, tested
-    #             alternative whose economics flip if candidate unions
-    #             shrink (smaller tiles, sparser scenes) or if a future
-    #             VPU widens compare throughput.
-    binning: str = "dup"  # 'dup' | 'anchor'
-
-    # --- fused-kernel grid shape (static fields so tools sweep them per
-    # call instead of editing module globals — VERDICT r3 item 9) ----------
-    r_tiles: int = 8         # forward kernel: pixel tiles composited per
-                             # grid step. At 1080p the mean tile has ~1 slab
-                             # chunk, so per-grid-step fixed cost dominates a
-                             # 1-tile grid; batching amortizes it and stacks
-                             # the group's pixel rows into one [R·P, KC]
-                             # cumsum matmul. v5e sweep at the 1M/1080p
-                             # bench (tools/profile_r_tiles.py): r=1 34.5 ms,
-                             # r=2 26.6, r=4 25.7, r=8 23.1.
-    r_tiles_bwd: int = 1     # backward kernel tiles per grid step: the
-                             # per-tile DMA waits and stores scale with R so
-                             # grouping does not amortize (tools/kexp3.py:
-                             # r=1 39.7 ms, r=2 41.2, r=4 45.0), and r=1
-                             # keeps the pair-gradient array at one F_PAD
-                             # row group (minimal fold traffic).
-    early_exit: bool = True  # transmittance early-exit (while_loop) vs
-                             # fixed-trip fori_loop in the chunk walk; the
-                             # max(carry) reduce costs a vector→scalar sync
-                             # per chunk but pays for itself on saturating
-                             # tiles (tools/kexp3.py: equal ±0.2 ms at the
-                             # bench, wins on opaque scenes)
+    # --- compositor selection (ops.rasterize.select_compositor) -----------
+    # 'auto': the Triton compositor kernel on a GPU, the XLA compositor on
+    # the CPU. 'never': the XLA compositor everywhere (the kernel's
+    # reference, e.g. for comparisons on the card).
+    use_pallas: str = "auto"  # 'auto' | 'never'
 
     # --- debugging --------------------------------------------------------
     # ≥0: render that gaussian id highlighted magenta at ≥0.9 alpha — the
     # reference's "selected splat" debug path (negative-opacity marker →
     # magenta fragment, simple_render.ts:171,181-190), re-keyed by id since
     # parameters are optimizer state here, not a hand-editable buffer.
-    # Forces the portable XLA compositor (the fused kernel doesn't carry
-    # per-pair gaussian ids). A densify-debugging tool, not a hot path.
+    # Forces the XLA compositor (the kernel does not carry per-pair
+    # gaussian ids). A densify-debugging tool, not a hot path.
     debug_selected: int = -1
 
     def grid_size(self, width: int, height: int) -> Tuple[int, int]:

@@ -2,10 +2,10 @@
 
 The reference packs gaussians into an interleaved WGSL-struct byte buffer
 (src/packing.ts, src/ply.ts:249-263: {position vec3, logScale vec3, rotQuat
-vec4, opacityLogit f32, shCoeffs vec3[K]}). On TPU the idiomatic layout is
+vec4, opacityLogit f32, shCoeffs vec3[K]}). Here the layout is
 structure-of-arrays: each field is a dense [N, ...] array so every per-gaussian
-op is a vectorized map that XLA tiles onto the VPU, and fields shard/replicate
-independently under pjit.
+op is a vectorized map that XLA fuses, and fields shard/replicate
+independently under shard_map.
 
 Parameters are stored in their *raw* (pre-activation) form — log-scale and
 opacity logit — and decoded in-kernel (exp/sigmoid), making them directly
@@ -121,9 +121,8 @@ class GaussianCloud:
 
         Gives spatially coherent storage (useful for chunked/streamed
         processing and keeping densification clones near their parents).
-        Note: measured on v5e, this does NOT speed up the per-frame pair
-        gather — XLA's row gather costs ~5.4 ns/row regardless of index
-        locality — so it is not wired into the render hot path.
+        It is not wired into the render hot path: whether index locality
+        speeds up the per-frame pair gather on the GPU is not measured.
         """
         return self.reindex(morton_order(np.asarray(jax.device_get(self.xyz))))
 
@@ -187,7 +186,8 @@ class CameraParams:
 
     @property
     def view_proj(self) -> jax.Array:
-        return self.proj @ self.view
+        return jnp.matmul(self.proj, self.view,
+                          precision=jax.lax.Precision.HIGHEST)
 
 
 _register(

@@ -1,7 +1,7 @@
 """INRIA `cameras.json` loader (ref: src/camera.ts:463-578, data format
 camera.ts:7-16: [{id, img_name, width, height, position, rotation(3x3 row-
-major, camera-to-world), fx, fy}, ...]; 365-entry example at
-/root/reference/public/cam.json).
+major, camera-to-world), fx, fy}, ...]; a 365-entry example is
+tests/data/cam.json).
 
 The reference converts focal lengths to FOVs against the *canvas* size rather
 than the stored sensor size (camera.ts:482-483 — a deliberate quirk that

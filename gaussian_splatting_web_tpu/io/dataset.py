@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.types import CameraParams
+from ..utils.image import read_image
 from .cameras import load_cameras_json
 
 
@@ -26,6 +27,13 @@ class View:
 
 
 def _load_image(path: str, size: Tuple[int, int]) -> np.ndarray:
+    """[H, W, 3] float32 target at `size` = (width, height). PNGs at that
+    size need nothing beyond the standard library; other formats and
+    resizing need PIL."""
+    if path.lower().endswith(".png"):
+        img = read_image(path)
+        if img.shape[1::-1] == tuple(size):
+            return img
     from PIL import Image
 
     img = Image.open(path).convert("RGB")

@@ -3,7 +3,7 @@
 This is the vertex-shader stage of the reference (simple_render.ts:217-332)
 re-designed as one vectorized jitted map over all N gaussians — XLA fuses the
 whole chain (quat→R, Σ3D, view transform, Jacobian, cov2d, conic, SH) into a
-handful of VPU loops; there is no per-splat scalar work anywhere.
+handful of elementwise loops; there is no per-splat scalar work anywhere.
 
 Conventions (canonicalized; see core.camera):
   * view matrix is world→camera with +z forward (INRIA/COLMAP).
@@ -26,6 +26,7 @@ Differences from the reference worth noting (all deliberate):
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ import jax.numpy as jnp
 from ..config import RenderConfig
 from ..core.types import CameraParams, GaussianCloud
 from .sh import eval_sh
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass
@@ -102,7 +105,7 @@ def compute_cov3d(
     scale = jnp.exp(log_scale) * scale_modifier
     R = quat_to_rotmat(quat)
     M = R * scale[..., None, :]  # R @ diag(scale)
-    sigma = M @ jnp.swapaxes(M, -1, -2)
+    sigma = jnp.matmul(M, jnp.swapaxes(M, -1, -2), precision=HIGHEST)
     return jnp.stack(
         [
             sigma[..., 0, 0],
@@ -136,11 +139,14 @@ def project_gaussians(
     proj = camera.proj.astype(f32)
 
     # --- view / clip transform ------------------------------------------
-    t = xyz @ view[:3, :3].T + view[:3, 3]  # [N,3] camera space
+    # precision=HIGHEST: a default-precision f32 product may run in TF32
+    # on a GPU, which moves splat centres by a visible fraction of a pixel
+    mm = partial(jnp.matmul, precision=HIGHEST)
+    t = mm(xyz, view[:3, :3].T) + view[:3, 3]  # [N,3] camera space
     depth = t[..., 2]
-    pv = proj @ view
-    clip = xyz @ pv[:3, :3].T + pv[:3, 3]          # x,y,z rows
-    clip_w = xyz @ pv[3, :3] + pv[3, 3]            # w row (= depth for INRIA proj)
+    pv = mm(proj, view)
+    clip = mm(xyz, pv[:3, :3].T) + pv[:3, 3]       # x,y,z rows
+    clip_w = mm(xyz, pv[3, :3]) + pv[3, 3]         # w row (= depth for INRIA proj)
     # behind-camera cull (ref NaN-culls at clipPos.w <= 0, simple_render.ts:230-233)
     in_front = clip_w > 0.2
     safe_w = jnp.where(in_front, clip_w, 1.0)

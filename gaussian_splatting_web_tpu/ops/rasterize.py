@@ -2,27 +2,27 @@
 
 This is the reference's fragment stage + blend unit (simple_render.ts:169-200
 with the one-minus-dst-alpha/one "under" blend state, :454-471) re-designed
-for TPU:
+for an accelerator:
 
-  * Pixels live in tiles of `tile_size`² (= 256 = 2×128 lanes) so every
-    per-pixel quantity is a well-shaped VPU vector.
+  * Pixels live in tiles of `tile_size`² (= 256) pixels, and each tile
+    composites only the depth-sorted splat segment binning gave it.
   * The inherently sequential front-to-back transmittance recurrence
     T_{k+1} = T_k (1 - α_k) is replaced by an *exclusive cumulative sum of
     log(1-α)* along the depth-sorted splat axis: w_k = α_k exp(Σ_{j<k}
-    log(1-α_j)). A cumsum is a parallel scan XLA maps well to the VPU, the
-    whole compositor becomes a few dense element-wise ops + reductions, and —
-    crucially — it is differentiable by construction, so the backward pass
-    (the INRIA hand-written back-to-front CUDA kernel) falls out of jax.grad.
+    log(1-α_j)). A cumsum is a parallel scan, the whole compositor becomes
+    a few dense element-wise ops + reductions, and — crucially — it is
+    differentiable by construction, so the backward pass (the INRIA
+    hand-written back-to-front CUDA kernel) falls out of jax.grad.
   * INRIA early termination (stop before the splat that would push
     transmittance under 1e-4) is an exact masked `cummax` instead of a loop
-    break, so results bit-match the sequential formulation.
+    break, so results match the sequential formulation.
   * Tiles are processed in chunks via `lax.map` with a checkpointed body:
     the backward pass re-gathers and recomputes per-chunk activations
     instead of storing O(tiles × splats × pixels) residuals.
 
-A fused Pallas kernel with identical semantics lives in ops/pallas/ for the
-single-chip hot path; this module is the portable (CPU/TPU) and batching-
-friendly implementation and the ground truth for it.
+This XLA compositor is the CPU path and the ground truth for the GPU
+compositor kernel (ops.triton_raster), whose backward is this module's VJP;
+`select_compositor` picks between them.
 """
 
 from __future__ import annotations
@@ -42,170 +42,44 @@ from .sort import TileBins, bin_splats
 
 NUM_FIELDS = 9   # mx, my, conic_a, conic_b, conic_c, r, g, b, opacity
 FIELD_ROW = 16   # row width the fields are padded to before the gather
-
-
-def _pair_tiles(bins: TileBins, m: int) -> jnp.ndarray:
-    """Tile id owning each position of the sorted pair array (positions
-    past the last segment return the last tile — dead padding). Used by
-    the gather fallbacks to apply the tile-relative mean16 quantization
-    the payload path bakes in at pack time."""
-    pos = jnp.arange(m, dtype=bins.tile_start.dtype)
-    ti = jnp.searchsorted(bins.tile_start, pos, side="right").astype(
-        jnp.int32) - 1
-    return jnp.clip(ti, 0, None)
-
-
-def _quantize_mean16_global(mx, my, bins: TileBins, gx: int, ts: int):
-    """Tile-relative mean16 round-trip expressed on GLOBAL coordinates:
-    rel_q + tile_origin is exact in f32 (both multiples of 1/32 below
-    2^17·1/32), so the kernel's later origin subtract recovers rel_q
-    bit-exactly and the XLA compositor's quantize_mean16 re-application
-    is the identity."""
-    from .sort import quantize_mean16
-
-    ti = _pair_tiles(bins, mx.shape[0])
-    tx = (ti % gx).astype(jnp.float32) * ts
-    ty = (ti // gx).astype(jnp.float32) * ts
-    return (quantize_mean16(mx - tx) + tx,
-            quantize_mean16(my - ty) + ty)
+DEAD_POWER = -1e4  # log-opacity of an empty slot: far below the cutoff
 
 
 def pack_sorted_fields(
     splats: ProjectedSplats, bins: TileBins, pad: int,
-    quantize: bool = False, mean16: tuple | None = None,
 ) -> jnp.ndarray:
     """Gather splat appearance fields into (tile, depth)-sorted pair order.
 
-    One contiguous [M + pad, 16] row gather replaces the per-tile
-    [tiles × max_per_tile] element gathers that dominated raster time
-    (padding-heavy gathers are the TPU's weakest access pattern; after this,
-    every tile's splat list is a *contiguous slab* readable with a dynamic
-    slice or a straight DMA). Rows are padded 9 → 16 lanes BEFORE the
-    gather: 64-byte aligned rows gather ~5x faster than 36-byte ones
-    (measured 4.8 vs 27 ns/row on v5e). `pad` zero rows keep end-of-array
+    One contiguous [M + pad, 16] f32 row gather replaces per-tile
+    [tiles × max_per_tile] element gathers: after it, every tile's splat
+    list is a *contiguous slab* readable with a dynamic slice. Rows are
+    padded 9 → 16 fields (64-byte rows). `pad` zero rows keep end-of-array
     slices in bounds.
-
-    With `quantize` (config.pack_fields), conic/rgb/opacity go through the
-    same bf16 round-trip the fused kernel's packed sort payloads apply
-    (ops.sort.pack_bf16_pair), keeping the two compositor paths
-    semantically identical under the shipped config.
     """
-    from .sort import quantize_bf16
-
-    q = quantize_bf16 if quantize else (lambda x: x)
     packed = jnp.stack(
         [
             splats.mean2d[:, 0],
             splats.mean2d[:, 1],
-            q(splats.conic[:, 0]),
-            q(splats.conic[:, 1]),
-            q(splats.conic[:, 2]),
-            q(splats.rgb[:, 0]),
-            q(splats.rgb[:, 1]),
-            q(splats.rgb[:, 2]),
-            q(splats.opacity),
+            splats.conic[:, 0],
+            splats.conic[:, 1],
+            splats.conic[:, 2],
+            splats.rgb[:, 0],
+            splats.rgb[:, 1],
+            splats.rgb[:, 2],
+            splats.opacity,
         ]
         + [jnp.zeros_like(splats.opacity)] * (FIELD_ROW - NUM_FIELDS),
         axis=-1,
     )                                                        # [N, 16]
     sorted_fields = packed[bins.sorted_gidx]                 # [M, 16]
-    if mean16 is not None:
-        gx, ts = mean16
-        qx, qy = _quantize_mean16_global(
-            sorted_fields[:, 0], sorted_fields[:, 1], bins, gx, ts)
-        sorted_fields = jnp.concatenate(
-            [qx[:, None], qy[:, None], sorted_fields[:, 2:]], axis=1)
     return jnp.concatenate(
         [sorted_fields, jnp.zeros((pad, FIELD_ROW), sorted_fields.dtype)]
     )
 
 
-def pack_sorted_fields_split(
-    splats: ProjectedSplats, bins: TileBins, pad: int,
-    quantize: bool = False, mean16: tuple | None = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Gather splat fields into pair order as TWO narrow row arrays:
-    [M+pad, 8] = (mx, my, conic_a, conic_b, conic_c, r, g, b) and
-    [M+pad, 4] = (opacity, 0, 0, 0).
-
-    Row-gather cost on v5e is strongly super-linear in row width (measured
-    14.9 ns/row at 64 B vs 5.6 ns/row at 32 B at 3M rows), so one 64-byte
-    gather loses to an aligned 32-byte + 16-byte pair by ~40%. The Pallas
-    compositor streams the two arrays with two DMAs per chunk.
-
-    `quantize` applies the config.pack_fields bf16 round-trip (see
-    pack_sorted_fields) so this fallback matches the payload path.
-    """
-    from .sort import quantize_bf16
-
-    q = quantize_bf16 if quantize else (lambda x: x)
-    z = jnp.zeros_like(splats.opacity)
-    p8 = jnp.stack(
-        [
-            splats.mean2d[:, 0],
-            splats.mean2d[:, 1],
-            q(splats.conic[:, 0]),
-            q(splats.conic[:, 1]),
-            q(splats.conic[:, 2]),
-            q(splats.rgb[:, 0]),
-            q(splats.rgb[:, 1]),
-            q(splats.rgb[:, 2]),
-        ],
-        axis=-1,
-    )
-    p4 = jnp.stack([q(splats.opacity), z, z, z], axis=-1)
-    s8 = p8[bins.sorted_gidx]
-    s4 = p4[bins.sorted_gidx]
-    if mean16 is not None:
-        gx, ts = mean16
-        qx, qy = _quantize_mean16_global(s8[:, 0], s8[:, 1], bins, gx, ts)
-        s8 = jnp.concatenate([qx[:, None], qy[:, None], s8[:, 2:]], axis=1)
-    return (
-        jnp.concatenate([s8, jnp.zeros((pad, 8), s8.dtype)]),
-        jnp.concatenate([s4, jnp.zeros((pad, 4), s4.dtype)]),
-    )
-
-
-@jax.custom_jvp
-def _power_bf16x3(u_mat, v_mat):
-    """power[C,K,P] = Σ_b u[P,b]·v[C,K,b] via the SAME three-pass bf16
-    decomposition as the fused kernel's _dot_exact_bf16x3: identical bf16
-    roundings of identical v values and f32-accumulated MXU contractions
-    of the same terms make `power` agree with the kernel TO THE BIT, so
-    the discrete decisions downstream (1/255 cutoff, 0.99 clamp, 1e-4
-    early exit) cannot flip between the two compositor paths. This
-    replaced a precision=HIGHEST f32 einsum whose ~1e-6 disagreement
-    caused the grad-parity max tail (a handful of 0.99-clamp tie flips at
-    ~3e-2; VERDICT r4 item 6). Custom JVP because plain AD would route
-    tangents through the bf16 round-trips (the correction branches cancel
-    them to bf16 precision — measured 0.2-0.7 abs mean2d grad
-    corruption); the true tangent of a rounded-operand matmul is the
-    exact linear map, computed at HIGHEST precision."""
-    ub = u_mat.astype(jnp.bfloat16)
-    v1 = v_mat.astype(jnp.bfloat16)
-    r1 = v_mat - v1.astype(jnp.float32)
-    v2 = r1.astype(jnp.bfloat16)
-    v3 = (r1 - v2.astype(jnp.float32)).astype(jnp.bfloat16)
-    ein = partial(jnp.einsum, "pb,ckb->ckp",
-                  preferred_element_type=jnp.float32)
-    return ein(ub, v1) + ein(ub, v2) + ein(ub, v3)
-
-
-@_power_bf16x3.defjvp
-def _power_bf16x3_jvp(primals, tangents):
-    u, v = primals
-    du, dv = tangents
-    ein = partial(jnp.einsum, "pb,ckb->ckp",
-                  preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.HIGHEST)
-    # du is an instantiated-zeros tangent when u is a constant (the pixel
-    # basis); XLA's simplifier folds the zero contraction away
-    return _power_bf16x3(u, v), ein(u, dv) + ein(du, v)
-
-
 def _composite_chunk(
     tile_ids: jnp.ndarray,          # [C] int32
-    sorted_fields: jnp.ndarray,     # [M + K, 9] (pack_sorted_fields)
+    sorted_fields: jnp.ndarray,     # [M + K, 16] (pack_sorted_fields)
     bins: TileBins,
     gx: int,
     config: RenderConfig,
@@ -226,13 +100,13 @@ def _composite_chunk(
         lambda s: jax.lax.dynamic_slice(
             sorted_fields, (s, 0), (k_cap, FIELD_ROW)
         )
-    )(start)                                                 # [C, K, 9]
+    )(start)                                                 # [C, K, 16]
     mean = slab[..., 0:2]
     conic = slab[..., 2:5]
     rgb = slab[..., 5:8]
     opac = slab[..., 8]
 
-    if config.debug_selected >= 0 and bins.sorted_gidx is not None:
+    if config.debug_selected >= 0:
         # "selected splat" highlight (simple_render.ts:171,181-190): the
         # chosen gaussian composites magenta at ≥0.9 alpha so its actual
         # screen footprint is visible through the normal blend stack
@@ -247,68 +121,22 @@ def _composite_chunk(
                         jnp.asarray([1.0, 0.0, 1.0], rgb.dtype), rgb)
         opac = jnp.where(sel, jnp.maximum(opac, 0.9), opac)
 
-    # TILE-LOCAL pixel coordinates, falloff as the SAME rank-6 bilinear
-    # form the fused Pallas kernel evaluates (power is quadratic in the
-    # pixel coords: power = Σ_b u_b(px,py)·v_b(splat); raster.py
-    # chunk_body): aligning the algebra keeps the two compositor paths'
-    # power values within the kernel's bf16x3 error (~1e-6 abs) instead
-    # of ~1e-5 from a differently-associated direct conic evaluation, so
-    # the discrete masks (1/255 cutoff, 0.99 clamp, 1e-4 early exit)
-    # almost never flip between paths (VERDICT r2 item 6: grad-parity
-    # max tail).
+    # Falloff as a plain f32 quadratic form in global pixel coordinates,
+    # the same arithmetic, term for term, as the GPU kernel
+    # (ops.triton_raster) and the NumPy oracle. log(opacity) folds into
+    # power, so alpha = exp(power) and the 1/255 cutoff (:191-193) is a
+    # compare on power; DEAD_POWER kills slots past the tile's count.
     tx = (tile_ids % gx).astype(jnp.float32) * ts           # [C]
     ty = (tile_ids // gx).astype(jnp.float32) * ts
     u = jnp.arange(ts, dtype=jnp.float32)
-    px = jnp.broadcast_to(u[None, :], (ts, ts)).reshape(p)  # [P] tile-local
-    py = jnp.broadcast_to(u[:, None], (ts, ts)).reshape(p)
-    u_mat = jnp.stack(
-        [jnp.ones((p,), jnp.float32), px, py, px * px, py * py, px * py],
-        axis=1,
-    )                                                       # [P, 6]
-
-    mxl = mean[..., 0] - tx[:, None]                        # [C, K] local
-    myl = mean[..., 1] - ty[:, None]
-    if config.pack_fields and config.pack_mean16:
-        # identical to the packed payload path's tile-relative u16
-        # round-trip (ops.sort.pack_mean16_rel; straight-through grad)
-        from .sort import quantize_mean16
-
-        mxl = quantize_mean16(mxl)
-        myl = quantize_mean16(myl)
-    ca, cb, cc = conic[..., 0], conic[..., 1], conic[..., 2]
-    # log(opacity) + the liveness mask fold into the constant row, exactly
-    # as in the fused kernel (ops/pallas/raster.py chunk_body): alpha =
-    # exp(power) directly and the 1/255 cutoff (:191-193) becomes a
-    # compare on power. LOG_PAD (finite) kills dead slots via the cutoff.
-    from .pallas.raster import LOG_PAD
-
-    row0_extra = jnp.where(
-        live, jnp.log(jnp.maximum(opac, 1e-30)), LOG_PAD)   # [C, K]
-    v_mat = jnp.stack(
-        [
-            row0_extra
-            - (0.5 * ca * mxl * mxl + cb * mxl * myl + 0.5 * cc * myl * myl),
-            ca * mxl + cb * myl,
-            cc * myl + cb * mxl,
-            -0.5 * ca,
-            -0.5 * cc,
-            -cb,
-        ],
-        axis=-1,
-    )                                                       # [C, K, 6]
-    # Three-pass bf16 evaluation, the SAME decomposition as the fused
-    # kernel's _dot_exact_bf16x3 (u is exact in bf16 — small integers):
-    # identical bf16 roundings of identical v values and an f32-accumulated
-    # MXU contraction of the same terms make `power` agree with the kernel
-    # to the bit on TPU (and through interpret mode on CPU) — so the
-    # discrete decisions downstream (1/255 cutoff, 0.99 clamp, 1e-4 early
-    # exit on the carry) cannot flip between the two compositor paths from
-    # power disagreement. This replaced a precision=HIGHEST f32 einsum
-    # whose ~1e-6 disagreement with the kernel caused the grad-parity
-    # max tail (a handful of 0.99-clamp tie flips at ~3e-2; VERDICT r4
-    # item 6). Zero-padding differences in the contracted dim are exact
-    # (adding 0.0 terms), so the 6-row form matches the kernel's 8-row.
-    power = _power_bf16x3(u_mat, v_mat)                  # [C, K, P]
+    px = tx[:, None] + jnp.broadcast_to(u[None, :], (ts, ts)).reshape(p)
+    py = ty[:, None] + jnp.broadcast_to(u[:, None], (ts, ts)).reshape(p)
+    dx = px[:, None, :] - mean[..., 0][..., None]           # [C, K, P]
+    dy = py[:, None, :] - mean[..., 1][..., None]
+    ca, cb, cc = (conic[..., i][..., None] for i in range(3))
+    log_op = jnp.where(live, jnp.log(jnp.maximum(opac, 1e-30)), DEAD_POWER)
+    power = log_op[..., None] - (
+        0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy)
     alpha = jnp.where(
         power >= math.log(config.alpha_cutoff),
         jnp.minimum(jnp.exp(power), config.alpha_max), 0.0)
@@ -328,7 +156,8 @@ def _composite_chunk(
     )
     w = jnp.where(done, 0.0, alpha * jnp.exp(log_t_excl))   # [C, K, P]
 
-    color = jnp.einsum("ckp,ckq->cpq", w, rgb)              # [C, P, 3]
+    color = jnp.einsum("ckp,ckq->cpq", w, rgb,
+                       precision=jax.lax.Precision.HIGHEST)  # [C, P, 3]
     alpha_out = jnp.sum(w, axis=1)                          # [C, P]
     return jnp.concatenate([color, alpha_out[..., None]], axis=-1)
 
@@ -351,11 +180,7 @@ def composite_tiles(
     n_chunks = tile_ids.shape[0] // chunk
     assert n_chunks * chunk == tile_ids.shape[0], "pad tile_ids to a chunk multiple"
 
-    sorted_fields = pack_sorted_fields(
-        splats, bins, pad=config.max_per_tile,
-        quantize=config.pack_fields,
-        mean16=((gx, config.tile_size)
-                if config.pack_fields and config.pack_mean16 else None))
+    sorted_fields = pack_sorted_fields(splats, bins, pad=config.max_per_tile)
     body = jax.checkpoint(
         partial(
             _composite_chunk,
@@ -369,6 +194,47 @@ def composite_tiles(
     return out.reshape(tile_ids.shape[0], ts, ts, 4)
 
 
+def select_compositor(platform: str, config: RenderConfig) -> str:
+    """The one compositor dispatch: 'kernel' (the Triton compositor of
+    ops.triton_raster) or 'xla' (composite_tiles) for `platform`.
+
+    The kernel is compiled for the GPU only (the CPU never runs it in
+    interpret mode behind the caller's back); other platforms are refused.
+    config.use_pallas == 'never' asks for the XLA compositor everywhere.
+    debug_selected needs per-pair gaussian ids, which only the XLA
+    compositor reads."""
+    if platform not in ("cpu", "gpu"):
+        raise ValueError(f"no compositor for platform {platform!r}")
+    if config.use_pallas not in ("auto", "never"):
+        raise ValueError(f"use_pallas={config.use_pallas!r}")
+    if (platform == "gpu" and config.use_pallas == "auto"
+            and config.debug_selected < 0):
+        return "kernel"
+    return "xla"
+
+
+def composite(
+    splats: ProjectedSplats,
+    bins: TileBins,
+    tile_ids: jnp.ndarray,
+    gx: int,
+    config: RenderConfig,
+    platform: str | None = None,
+) -> jnp.ndarray:
+    """Composite a tile-id list → [T, ts, ts, 4] with the compositor that
+    select_compositor picks for `platform` (default: the default backend).
+
+    Sharded callers pass their mesh's device platform, which is the
+    platform the computation runs on."""
+    if platform is None:
+        platform = jax.default_backend()
+    if select_compositor(platform, config) == "kernel":
+        from .triton_raster import composite_tiles_kernel
+
+        return composite_tiles_kernel(splats, bins, tile_ids, gx, config)
+    return composite_tiles(splats, bins, tile_ids, gx, config)
+
+
 def composite_tiles_auto(
     splats: ProjectedSplats,
     tile_ids: jnp.ndarray,
@@ -378,30 +244,11 @@ def composite_tiles_auto(
     gx: int,
     platform: str | None = None,
 ) -> jnp.ndarray:
-    """Composite a tile-id subset → [T, ts, ts, 4], dispatching like
-    render_impl: the fused Pallas kernel on TPU, the portable lax.map
-    compositor elsewhere. Used by the shard_map tile-sharded paths (each
-    device passes the tiles it owns); binning happens internally (inside
-    the kernel's custom-VJP boundary on the Pallas path).
-
-    `platform` must be the platform the computation actually runs on —
-    sharded callers pass their mesh's device platform, because a virtual
-    CPU mesh can coexist with a registered TPU default backend (the
-    dryrun_multichip configuration)."""
-    ts = config.tile_size
-    if platform is None:
-        platform = jax.default_backend()
-    if config.use_pallas == "always" or (
-        config.use_pallas == "auto" and platform == "tpu"
-    ):
-        from .pallas.raster import composite_tiles_subset_pallas
-
-        tiles = composite_tiles_subset_pallas(
-            splats, tile_ids, width, height, config
-        )
-        return tiles.reshape(-1, ts, ts, 4)
+    """Bin `splats`, then composite a tile-id subset → [T, ts, ts, 4].
+    Used by the shard_map tile-sharded paths (each device passes the
+    tiles it owns)."""
     bins = bin_splats(splats, width, height, config)
-    return composite_tiles(splats, bins, tile_ids, gx, config)
+    return composite(splats, bins, tile_ids, gx, config, platform)
 
 
 def assemble_image(
@@ -420,6 +267,7 @@ def rasterize_tiles(
     width: int,
     height: int,
     config: RenderConfig,
+    platform: str | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Composite all tiles → (rgb [H, W, 3], alpha [H, W])."""
     gx, gy = config.grid_size(width, height)
@@ -427,25 +275,9 @@ def rasterize_tiles(
     chunk = min(config.tile_chunk, num_tiles)
     padded = -(-num_tiles // chunk) * chunk
     tile_ids = jnp.arange(padded, dtype=jnp.int32) % num_tiles
-    out = composite_tiles(splats, bins, tile_ids, gx, config)
+    out = composite(splats, bins, tile_ids, gx, config, platform)
     out = assemble_image(out, width, height, gx, gy)
     return out[..., :3], out[..., 3]
-
-
-def select_fused_rasterizer(width: int, height: int, config: RenderConfig):
-    """Fused bin+composite op for the configured binning architecture:
-    (splats, w, h, config) → (rgb, alpha, stats). 'anchor' needs the
-    tile id to fit 16 packed key bits — beyond-4K frames fall back to
-    the duplicated-slot path."""
-    if (config.binning == "anchor"
-            and (config.num_tiles(width, height) < (1 << 16)
-                 or not config.pack_fields)):
-        from .pallas.anchor import rasterize_anchor
-
-        return rasterize_anchor
-    from .pallas.raster import rasterize_pallas
-
-    return rasterize_pallas
 
 
 def render_impl(
@@ -472,27 +304,15 @@ def render_impl(
         # converted cloud
         cloud = cloud.with_storage_dtype(config.dtype)
     splats = project_gaussians(cloud, camera, width, height, config)
-
-    if config.debug_selected < 0 and (config.use_pallas == "always" or (
-        config.use_pallas == "auto" and jax.default_backend() == "tpu"
-    )):
-        # binning runs inside the fused op's custom-VJP boundary so the
-        # splat fields can ride the binning sort as payloads (no pair
-        # gather) without XLA AD transposing the sort.
-        rasterize_fused = select_fused_rasterizer(width, height, config)
-        rgb, alpha, stats = rasterize_fused(splats, width, height, config)
-        num_pairs, overflow = stats["num_pairs"], stats["overflow"]
-    else:
-        bins = bin_splats(splats, width, height, config)
-        rgb, alpha = rasterize_tiles(splats, bins, width, height, config)
-        num_pairs, overflow = bins.num_pairs, bins.overflow
+    bins = bin_splats(splats, width, height, config)
+    rgb, alpha = rasterize_tiles(splats, bins, width, height, config)
 
     bg = jnp.asarray(config.background, dtype=rgb.dtype)
     img = rgb + (1.0 - alpha[..., None]) * bg
     aux = {
         "alpha": alpha,
-        "num_pairs": num_pairs,
-        "overflow": overflow,
+        "num_pairs": bins.num_pairs,
+        "overflow": bins.overflow,
         "num_visible": jnp.sum(splats.valid.astype(jnp.int32)),
     }
     return img, aux

@@ -5,13 +5,12 @@ The reference's sorting subsystem is a per-frame global GPU radix argsort of
 shaders.ts:44-73; legacy bitonic path in bitonic.ts/depth_sorter.ts). Every
 pixel then iterates splats in that single global order.
 
-On TPU the idiomatic design is the INRIA tile-binned one: expand each splat
-into the 16x16-pixel tiles its extent covers, sort the (tile, depth, id)
-triples once with XLA's variadic sort (`lax.sort`, num_keys=2 —
-lexicographic (tile, depth)), and read per-tile contiguous, depth-ordered
-segments via searchsorted offsets. This turns "sort + full-screen quads" into
-"one sort + dense per-tile gathers", which is what the rasterizer kernel
-needs for sequential front-to-back compositing over VMEM-resident slabs.
+Here the design is the INRIA tile-binned one: expand each splat into the
+16x16-pixel tiles its extent covers, sort the (tile, depth, id) triples once
+with XLA's variadic sort (`lax.sort`), and read per-tile contiguous,
+depth-ordered segments via searchsorted offsets. This turns "sort +
+full-screen quads" into "one sort + dense per-tile reads", which is what the
+compositor needs for front-to-back compositing of one tile's segment.
 
 Static-shape strategy (XLA requires fixed shapes): each gaussian owns
 `config.max_dup` candidate (tile, depth) slots; slots beyond its actual tile
@@ -36,175 +35,28 @@ from .projection import ProjectedSplats
 class TileBins:
     """Sorted splat→tile assignment.
 
-    sorted_gidx:  [M] gaussian index per (tile, depth)-sorted pair, or
-                  None in carry_fields mode — the fused-kernel path never
-                  gathers by gaussian id, and each extra sort payload
-                  costs ~3.9 ms at the 1M bench (tools/profile_payloads).
-    pair_cap:     static M (the truncated pair count; sorted_gidx.shape[0]
-                  when sorted_gidx exists).
+    sorted_gidx:  [M] gaussian index per (tile, depth)-sorted pair (M is
+                  the pair cap after gather-cap truncation).
     tile_start:   [T] offset of each tile's segment in the sorted pairs.
     tile_count:   [T] segment length per tile.
     num_pairs:    [] total live pairs (observability).
-    overflow:     [] gaussians whose tile footprint was truncated at max_dup.
-    sorted_fields: None, or the splat appearance fields carried through
-                  the sort as extra payloads in (tile, depth)-sorted pair
-                  order (carry_fields=True). With fields_packed (the
-                  config.pack_fields default) this is a 6-tuple
-                  (mx f32, my f32, ca|cb, cc|op, r|g, b|0 — u32 bf16
-                  pairs, see pack_bf16_pair); otherwise the exact 9-tuple
-                  of f32 arrays (mx, my, conic_a, conic_b, conic_c, r, g,
-                  b, opacity). Payloads beat the row gathers they replace
-                  (~24 ms at 3M pairs) but are NOT free: ~3.9 ms per
-                  payload array at 4.25M slots on v5e
-                  (tools/profile_payloads.py — round 1 concluded "nearly
-                  free" from a measurement where XLA's sort simplifier had
-                  DCE'd the unconsumed payloads), hence the packing.
-    sorted_slot:  [n_slots] FULL sort permutation: position → originating
-                  slot id, SLOT-MAJOR (tier A slot k·n+g, then each
-                  compacted tier's [w_j, cap_j] grid in order — see
-                  candidate_slot_tiles on why the minor dim is splats). Untruncated so the backward
-                  can sort the pair gradients BACK into dense slot order
-                  (key = sorted_slot, payloads = gradient rows) and fold
-                  onto splats with static reshape-sums — no gathers, no
-                  pair-level scatter-add
-                  (ops.pallas.raster._fold_pair_grads; ~18 ms vs 65 ms for
-                  the round-1 invert+gather fold and 239 ms for segment_sum
-                  at the 1M/1080p bench on v5e, tools/profile_r2.py).
-    comp_idx:     per compacted tier, [cap_j] row → gaussian index
-                  (ascending; () when single-tier).
-    comp_perm:    [n + maxcap] class-sort permutation (position → gaussian
-                  id, classes in tier order, then the rest; tail padding
-                  zeros), or None when single-tier. With comp_offsets
-                  ([L] i32 start offsets of each tier's block) it lets the
-                  backward fold place every compacted tier's per-splat
-                  gradient sums into ONE perm-order buffer with
-                  dynamic_update_slice and bring them to gaussian order
-                  with a single row gather — a 300k-row
-                  `segment_sum` scatter costs 18 ms on v5e
-                  (tools/sortexp2.py), the buffer+gather ~6 ms.
-    tier_a_width: static dₐ (slots per gaussian in tier A).
-    comp_widths:  static slot widths of the compacted tiers, ascending
-                  (() = single tier). Round 3 added the optional MIDDLE
-                  tier (config.tier_mid): footprints ≤ 2 cover ~75% of a
-                  trained scene (tools CPU histogram), so
-                  (2, 4, max_dup) cuts the slot array 4.25M → 3.45M at the
-                  1M bench, and v5e lax.sort cost falls superlinearly with
-                  element count below ~4M (tools/sortexp.py: key+7payload
-                  41.6 ms @4.25M vs 23.8 ms @3.36M).
+    overflow:     [] gaussians whose tile footprint was shrunk at max_dup,
+                  plus tier-cap and pair-cap losses.
     """
 
-    sorted_gidx: jax.Array | None
+    sorted_gidx: jax.Array
     tile_start: jax.Array
     tile_count: jax.Array
     num_pairs: jax.Array
     overflow: jax.Array
-    sorted_slot: jax.Array
-    comp_idx: tuple
-    comp_perm: jax.Array | None = None
-    comp_offsets: jax.Array | None = None
-    sorted_fields: tuple | None = None
-    tier_a_width: int = 0
-    comp_widths: tuple = ()
-    pair_cap: int = 0
-    fields_packed: bool = False
-    # round 5 (config.pack_mean16): mean2d rides the sort as ONE u32 of
-    # tile-relative 1/32-px fixed point instead of two f32 payloads —
-    # sorted_fields is then the 5-tuple (mxy u16-pair, ca|cb, cc|op, r|g,
-    # b|0); each payload dropped saves ~3.9 ms at the 1M bench
-    mean_packed: bool = False
 
 
 jax.tree_util.register_dataclass(
     TileBins,
     data_fields=["sorted_gidx", "tile_start", "tile_count", "num_pairs",
-                 "overflow", "sorted_slot", "comp_idx", "comp_perm",
-                 "comp_offsets", "sorted_fields"],
-    meta_fields=["tier_a_width", "comp_widths", "pair_cap",
-                 "fields_packed", "mean_packed"],
+                 "overflow"],
+    meta_fields=[],
 )
-
-
-def pack_bf16_pair(hi: jnp.ndarray, lo: jnp.ndarray) -> jnp.ndarray:
-    """Round two f32 arrays to bf16 and pack them into one u32 (hi in the
-    top 16 bits). bf16 is the top half of f32, so the kernel-side unpack is
-    two integer ops + a same-width bitcast — no 16-bit vectors needed:
-    hi = bitcast(u & 0xFFFF0000, f32), lo = bitcast(u << 16, f32)."""
-    h = jax.lax.bitcast_convert_type(
-        hi.astype(jnp.bfloat16), jnp.uint16).astype(jnp.uint32)
-    l = jax.lax.bitcast_convert_type(
-        lo.astype(jnp.bfloat16), jnp.uint16).astype(jnp.uint32)
-    return (h << 16) | l
-
-
-def unpack_bf16_pair(u: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Inverse of pack_bf16_pair → (hi f32, lo f32), exact."""
-    hi = jax.lax.bitcast_convert_type(u & jnp.uint32(0xFFFF0000), jnp.float32)
-    lo = jax.lax.bitcast_convert_type(u << 16, jnp.float32)
-    return hi, lo
-
-
-@jax.custom_jvp
-def quantize_bf16(x: jnp.ndarray) -> jnp.ndarray:
-    """bf16 round-trip (the rounding pack_bf16_pair applies). The XLA
-    compositor applies this to the packed fields so both compositor paths
-    see identical values when config.pack_fields is on.
-
-    Straight-through gradient: a plain bf16 cast would round the COTANGENT
-    to bf16 in the backward pass, while the fused kernel computes f32
-    gradients with respect to the quantized values — the straight-through
-    rule makes both paths' gradients identical."""
-    return x.astype(jnp.bfloat16).astype(jnp.float32)
-
-
-@quantize_bf16.defjvp
-def _quantize_bf16_jvp(primals, tangents):
-    (x,), (t,) = primals, tangents
-    return quantize_bf16(x), t
-
-
-# --- tile-relative mean2d packing (config.pack_mean16) -------------------
-# The fused kernel works in tile-LOCAL pixel coordinates anyway
-# (raster.py chunk_body subtracts the tile origin), so the mean2d payload
-# can be stored tile-relative, where 16-bit fixed point at 1/32 px covers
-# [-1024, +1024) px — max quantization error 1/64 px, flat. Splats binned
-# to a tile farther than 1024 px from their center clamp (only possible
-# for radius > 1024 px monsters, which the max_dup footprint cap already
-# truncates to a fraction of their tiles). Both compositor paths quantize
-# identically, so parity is unaffected.
-MEAN16_SCALE = 32.0
-MEAN16_OFF = 1024.0
-
-
-def _quant_mean16(rel: jnp.ndarray) -> jnp.ndarray:
-    return jnp.clip(
-        jnp.round((rel + MEAN16_OFF) * MEAN16_SCALE), 0.0, 65535.0
-    ).astype(jnp.uint32)
-
-
-def pack_mean16_rel(mx, my, tile, gx: int, ts: int) -> jnp.ndarray:
-    """Pack per-slot tile-relative mean2d into one u32 (x low 16, y high).
-
-    mx/my are per-splat [R] f32 columns, tile the [d, R] slot→tile grid
-    (sentinel ids produce dead values masked by the segment window)."""
-    txs = (tile % gx).astype(jnp.float32) * ts
-    tys = (tile // gx).astype(jnp.float32) * ts
-    return _quant_mean16(mx[None, :] - txs) | (
-        _quant_mean16(my[None, :] - tys) << 16)
-
-
-@jax.custom_jvp
-def quantize_mean16(rel: jnp.ndarray) -> jnp.ndarray:
-    """The round-trip the packed mean2d payload applies to a tile-relative
-    coordinate; the XLA compositor calls this so both paths see identical
-    centers (straight-through gradient, like quantize_bf16)."""
-    q = jnp.clip(jnp.round((rel + MEAN16_OFF) * MEAN16_SCALE), 0.0, 65535.0)
-    return q * (1.0 / MEAN16_SCALE) - MEAN16_OFF
-
-
-@quantize_mean16.defjvp
-def _quantize_mean16_jvp(primals, tangents):
-    (x,), (t,) = primals, tangents
-    return quantize_mean16(x), t
 
 
 def float_to_sortable_uint(f: jnp.ndarray) -> jnp.ndarray:
@@ -232,9 +84,9 @@ def depth_sort_indices(depth: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
 
 
 TAU_SLACK = 1e-3  # conservative slack on the cutoff level-set threshold:
-                  # the compositor evaluates the quadratic with different
-                  # rounding (MXU bilinear form) than the culling test, so
-                  # borderline q ≈ τ pixels must never be culled
+                  # the compositor evaluates the quadratic per pixel with
+                  # other rounding than the culling test, so borderline
+                  # q ≈ τ pixels must never be culled
 
 
 def _cutoff_tau(opacity: jnp.ndarray, config: RenderConfig) -> jnp.ndarray:
@@ -309,12 +161,11 @@ def candidate_slot_tiles(x0, y0, rw, ntg, d, gx, num_tiles, ts, rows=None):
     Returns (tile [d, R] int32 with `num_tiles` as the dead sentinel,
     live [d, R] bool).
 
-    SLOT-MAJOR layout ([d, R], splats in the MINOR dim): XLA-TPU pads the
-    minor dimension of a rank-2 array to 128 lanes, so the natural
-    [R, d_a] grid with d_a = 2 materializes 64× oversized (a [1M, 2] f32
-    broadcast costs 512 MB of relayout traffic); [d, R] keeps the minor
-    dim at R = millions, unpadded. Flattening therefore yields slot-major
-    order: slot id (within a tier block) = k·R + g.
+    SLOT-MAJOR layout ([d, R], splats in the MINOR dim): the minor
+    dimension stays R = millions wide for every tier width d, so no
+    narrow minor dimension is ever padded or relaid out. Flattening
+    therefore yields slot-major order: slot id (within a tier block) =
+    k·R + g.
 
     With `rows` = (mx, my, A, B, C, τ) per splat, each slot additionally
     passes an EXACT ellipse–tile-rect overlap test (_rect_quad_min):
@@ -340,25 +191,18 @@ def candidate_slot_tiles(x0, y0, rw, ntg, d, gx, num_tiles, ts, rows=None):
     return tile, live
 
 
-def sort_pair_arrays(tiers, field_payloads, num_tiles, n, num_pairs,
-                     overflow, config: RenderConfig, with_gidx: bool = True):
+def sort_pair_arrays(tiers, num_tiles, n, num_pairs, overflow,
+                     config: RenderConfig):
     """Sort (tile, depth) pair tiers into per-tile depth-ordered segments.
 
     `tiers` is a list of (tile_id [d, R] with `num_tiles` sentinel,
     live [d, R], gidx [d, R], depth [R]) blocks — slot-major (see
-    candidate_slot_tiles); slot ids are the flat concatenated indices
-    (tier block offset + k·R + g). Implements both key modes (packed single key when
-    config.depth_bits > 0, exact two-key otherwise) and the post-sort
-    gather-cap truncation. Called by bin_splats; the sharded paths
-    (parallel.gaussian_sharded, the tile-subset kernels) reach it
-    transitively through bin_splats / composite_tiles_auto.
+    candidate_slot_tiles). Implements both key modes (packed single key
+    when config.depth_bits > 0, exact two-key otherwise) and the post-sort
+    gather-cap truncation. Called by bin_splats; the sharded paths reach it
+    through bin_splats.
 
-    `with_gidx=False` drops the gaussian-index payload (the fused-kernel
-    path never gathers by id; sorted_gidx returns None) — each payload
-    array costs ~3.9 ms at the 1M bench (tools/profile_payloads.py).
-
-    Returns (sorted_gidx, sorted_slot, sorted_fields, tile_start,
-    tile_count, num_pairs, overflow, pair_cap)."""
+    Returns (sorted_gidx, tile_start, tile_count, num_pairs, overflow)."""
     tile_bits = max(int(num_tiles + 1).bit_length(), 1)
     depth_bits = min(config.depth_bits, 32 - tile_bits)
 
@@ -370,17 +214,9 @@ def sort_pair_arrays(tiers, field_payloads, num_tiles, n, num_pairs,
             keys.append(
                 jnp.where(live, key, jnp.uint32(0xFFFFFFFF)).reshape(-1))
             gidxs.append(gidx.reshape(-1))
-        keys = jnp.concatenate(keys)
-        # slot payload: the concatenated flat index IS the slot id
-        # (slot-major [dₐ, n] tier A, then each compacted [w_j, cap_j])
-        slot_iota = jnp.arange(keys.shape[0], dtype=jnp.int32)
-        gidx_ops = (jnp.concatenate(gidxs),) if with_gidx else ()
-        sorted_key, *rest = jax.lax.sort(
-            (keys,) + gidx_ops + (slot_iota,) + tuple(field_payloads),
-            num_keys=1,
-        )
-        sorted_gidx = rest.pop(0) if with_gidx else None
-        sorted_slot, *sorted_fields = rest
+        # one key, one payload: the shape XLA hands to a radix sort
+        sorted_key, sorted_gidx = jax.lax.sort(
+            (jnp.concatenate(keys), jnp.concatenate(gidxs)), num_keys=1)
         bounds = jnp.arange(num_tiles + 1, dtype=jnp.uint32) << depth_bits
         edges = jnp.searchsorted(sorted_key, bounds, side="left").astype(
             jnp.int32
@@ -397,18 +233,11 @@ def sort_pair_arrays(tiers, field_payloads, num_tiles, n, num_pairs,
                 .astype(jnp.float32).reshape(-1)
             )
             gidx_flat.append(gidx.reshape(-1))
-        tiles_cat = jnp.concatenate(tiles_flat)
-        slot_iota = jnp.arange(tiles_cat.shape[0], dtype=jnp.int32)
-        gidx_ops = (jnp.concatenate(gidx_flat),) if with_gidx else ()
-        sorted_tile, _, *rest = jax.lax.sort(
-            (
-                tiles_cat,
-                jnp.concatenate(depths_flat),
-            ) + gidx_ops + (slot_iota,) + tuple(field_payloads),
+        sorted_tile, _, sorted_gidx = jax.lax.sort(
+            (jnp.concatenate(tiles_flat), jnp.concatenate(depths_flat),
+             jnp.concatenate(gidx_flat)),
             num_keys=2,
         )
-        sorted_gidx = rest.pop(0) if with_gidx else None
-        sorted_slot, *sorted_fields = rest
         tile_range = jnp.arange(num_tiles, dtype=jnp.int32)
         tile_start = jnp.searchsorted(
             sorted_tile, tile_range, side="left"
@@ -418,33 +247,28 @@ def sort_pair_arrays(tiers, field_payloads, num_tiles, n, num_pairs,
         ).astype(jnp.int32)
         tile_count = tile_end - tile_start
 
-    pair_cap = int(sorted_slot.shape[0])
     if config.gather_cap_factor > 0:
         # Dead (sentinel-key) pairs sort to the end, so truncating the
         # sorted pair array to cap = factor·N costs nothing while
         # cap ≥ live pairs — and everything downstream (the sorted-field
-        # gather, backward pair-gradient array, fold) shrinks with it. If
-        # a scene exceeds the cap, the farthest tiles lose their deepest
-        # splats (counted in overflow).
-        m_total = pair_cap
+        # gather and its backward scatter) shrinks with it. If a scene
+        # exceeds the cap, the farthest tiles lose their deepest splats
+        # (counted in overflow).
         # floor: factor·N is a trained-scene heuristic (pairs ≈ 2-3·N); a
         # tiny scene of large splats can legitimately need far more pairs
         # per splat, so never cap below gather_cap_floor pairs
-        cap = min(m_total, max(int(n * config.gather_cap_factor),
-                               config.gather_cap_floor))
-        if sorted_gidx is not None:
-            sorted_gidx = sorted_gidx[:cap]
-        sorted_fields = [f[:cap] for f in sorted_fields]
+        cap = min(int(sorted_gidx.shape[0]),
+                  max(int(n * config.gather_cap_factor),
+                      config.gather_cap_floor))
+        sorted_gidx = sorted_gidx[:cap]
         tile_count = jnp.minimum(
             tile_count, jnp.maximum(cap - tile_start, 0)
         )
         tile_start = jnp.minimum(tile_start, cap)  # keep slab reads in bounds
         overflow = overflow + jnp.maximum(num_pairs - cap, 0)
         num_pairs = jnp.minimum(num_pairs, cap)
-        pair_cap = cap
 
-    return (sorted_gidx, sorted_slot, sorted_fields, tile_start, tile_count,
-            num_pairs, overflow, pair_cap)
+    return sorted_gidx, tile_start, tile_count, num_pairs, overflow
 
 
 def bin_splats(
@@ -452,30 +276,19 @@ def bin_splats(
     width: int,
     height: int,
     config: RenderConfig,
-    carry_fields: bool = False,
 ) -> TileBins:
     """Bin projected splats into depth-sorted per-tile segments.
 
-    Design (all measured on a v5e): the dense N×max_dup slot grid is built
-    directly into sort keys with *no scatter* (scatters, like gathers, are
-    the TPU's weakest access pattern — a compaction pass costs 4-6× the sort
-    it saves), dead slots carry an all-ones sentinel key and sort to the
-    end. With `depth_bits > 0` the (tile, depth) pair packs into ONE uint32
-    key — tile id in the high bits, the top `depth_bits` of the monotone
-    float→uint depth transform below (the reference packs depth into 32-bit
-    radix keys the same way, shaders.ts:36-40 — we put the tile id where
-    its sign-bit trick lived). A single-key sort is ~1.5× faster than the
-    exact lexicographic two-key sort; depth ordering ties only for splats
-    whose depths agree to ~2⁻¹³ relative, visually indistinguishable.
-    `depth_bits = 0` selects the exact (tile, f32-depth) two-key sort.
-
-    With `carry_fields=True` the splat appearance fields ride through the
-    sort as nine extra f32 payloads (see TileBins.sorted_fields), replacing
-    the post-sort pair-order row gathers the fused compositor would
-    otherwise need. NOTE: the payloads make the sort outputs functions of
-    the differentiable splat fields — callers taking gradients must keep
-    bin_splats inside a custom-VJP boundary (ops.pallas.raster does) so
-    XLA AD never transposes the sort.
+    Design: the dense N×max_dup slot grid is built directly into sort keys
+    with *no scatter*; dead slots carry an all-ones sentinel key and sort
+    to the end. With `depth_bits > 0` the (tile, depth) pair packs into ONE
+    uint32 key — tile id in the high bits, the top `depth_bits` of the
+    monotone float→uint depth transform below (the reference packs depth
+    into 32-bit radix keys the same way, shaders.ts:36-40 — we put the tile
+    id where its sign-bit trick lived). Depth ordering then ties only for
+    splats whose depths agree to ~2⁻¹³ relative, visually
+    indistinguishable. `depth_bits = 0` selects the exact (tile, f32-depth)
+    two-key sort.
     """
     gx, gy = config.grid_size(width, height)
     num_tiles = gx * gy
@@ -487,13 +300,12 @@ def bin_splats(
     # max_dup tiles used to be truncated to its first d slots in ROW-MAJOR
     # order — the top band of its bbox — putting a hard horizontal edge
     # through every oversized splat. During training that corrupts the
-    # rendered TARGETS themselves (the r5 exact-binning run's ground-truth
-    # images banded, capping PSNR at ~13 regardless of fit quality).
-    # Instead shrink the rect around its center by √(d/ntg): the splat
-    # renders its central core (where the Gaussian mass is), stays
-    # differentiable everywhere it is visible, and recovers exactness as
-    # soon as it shrinks below d tiles. Shrunk splats are counted in
-    # `overflow` (same observability as the old truncation count).
+    # rendered TARGETS themselves (ground-truth images banded, capping
+    # PSNR at ~13 regardless of fit quality). Instead shrink the rect
+    # around its center by √(d/ntg): the splat renders its central core
+    # (where the Gaussian mass is), stays differentiable everywhere it is
+    # visible, and recovers exactness as soon as it shrinks below d tiles.
+    # Shrunk splats are counted in `overflow`.
     ntg_raw = rw * rh
     _over = ntg_raw > d
     _sf = jnp.sqrt(d / jnp.maximum(ntg_raw, 1).astype(jnp.float32))
@@ -526,61 +338,16 @@ def bin_splats(
     else:
         rows_all = None
 
-    if carry_fields and config.pack_fields:
-        # bf16-pack the 7 precision-tolerant fields into u32 pairs at the
-        # per-splat level (N elements, before the N×d broadcast): 4 packed
-        # payload arrays instead of 7 f32 ones. mean2d stays f32 here
-        # (subpixel placement of σ≈0.5 px splats needs more than 8
-        # mantissa bits); with config.pack_mean16 it packs per-SLOT as
-        # tile-relative u16 fixed point instead (see tier_payloads below).
-        z = jnp.zeros_like(splats.opacity)
-        field_cols = (
-            splats.mean2d[:, 0],
-            splats.mean2d[:, 1],
-            pack_bf16_pair(splats.conic[:, 0], splats.conic[:, 1]),
-            pack_bf16_pair(splats.conic[:, 2], splats.opacity),
-            pack_bf16_pair(splats.rgb[:, 0], splats.rgb[:, 1]),
-            pack_bf16_pair(splats.rgb[:, 2], z),
-        )
-    elif carry_fields:
-        field_cols = (
-            splats.mean2d[:, 0], splats.mean2d[:, 1],
-            splats.conic[:, 0], splats.conic[:, 1], splats.conic[:, 2],
-            splats.rgb[:, 0], splats.rgb[:, 1], splats.rgb[:, 2],
-            splats.opacity)
-    else:
-        field_cols = ()
-
-    pack_mean = (carry_fields and config.pack_fields
-                 and config.pack_mean16)
-
-    def tier_payloads(cols, tile_arr):
-        """Per-tier flat payload arrays from per-splat columns `cols`
-        (field_cols order) and the tier's [d, R] slot→tile grid. With
-        pack_mean the two f32 mean columns become ONE per-slot u32 of
-        tile-relative 1/32-px fixed point (pack_mean16_rel)."""
-        if not cols:
-            return []
-        if pack_mean:
-            mean_p = [pack_mean16_rel(cols[0], cols[1], tile_arr, gx, ts
-                                      ).reshape(-1)]
-            rest = cols[2:]
-        else:
-            mean_p = []
-            rest = cols
-        return mean_p + [
-            jnp.broadcast_to(f[None, :], tile_arr.shape).reshape(-1)
-            for f in rest]
-
+    overflow = jnp.sum(_over.astype(jnp.int32))
     d_a = min(config.tier_split, d) if config.tier_split > 0 else d
     if d_a < d:
         # Tiered duplication: most splats touch few tiles (bench-scene CPU
         # histogram: ≤2 covers 75%, ≤4 covers 99.4%), so a full N×max_dup
-        # grid is mostly sentinel padding that the sort, the field payloads,
-        # and the backward fold all pay for. Tier A gives every gaussian
-        # d_a slots; splats with bigger footprints are compacted (a small
-        # gather, not a scatter) into compacted tiers of ascending width —
-        # optionally a middle tier (config.tier_mid), then max_dup.
+        # grid is mostly sentinel padding that the sort pays for. Tier A
+        # gives every gaussian d_a slots; splats with bigger footprints are
+        # compacted (a small gather, not a scatter) into compacted tiers of
+        # ascending width — optionally a middle tier (config.tier_mid),
+        # then max_dup.
         widths = []
         if d_a < config.tier_mid < d:
             widths.append((config.tier_mid,
@@ -594,15 +361,12 @@ def bin_splats(
             jnp.arange(n, dtype=jnp.int32)[None, :], (d_a, n)
         )
         tiers = [(tile_a, live_a, gidx_a, splats.depth)]
-        payload_parts = [[p] for p in tier_payloads(field_cols, tile_a)]
-        overflow = jnp.sum(_over.astype(jnp.int32))
         num_pairs = jnp.sum(live_a.astype(jnp.int32))
 
-        # Compaction via ONE stable class sort, not jnp.nonzero: nonzero's
-        # TPU lowering costs ~11.6 ms per call at 1M (tools/sortexp.py)
-        # while a (class, iota) sort is ~2.2 ms. Stability keeps each
-        # class's indices ascending; tier j's block starts at the running
-        # class-count offset (dynamic_slice).
+        # Compaction via ONE stable class sort of (class, iota) instead of
+        # one jnp.nonzero per tier. Stability keeps each class's indices
+        # ascending; tier j's block starts at the running class-count
+        # offset (dynamic_slice).
         n_comp = len(widths)
         cls = jnp.full((n,), n_comp, jnp.uint32)
         prev_w = d_a
@@ -613,7 +377,8 @@ def bin_splats(
             cls = jnp.where(sel, jnp.uint32(j), cls)
             prev_w = w_j
         _, perm = jax.lax.sort(
-            (cls, jnp.arange(n, dtype=jnp.int32)), num_keys=1)
+            (cls, jnp.arange(n, dtype=jnp.int32)), num_keys=1,
+            is_stable=True)
         class_counts = [
             jnp.sum((cls == j).astype(jnp.int32)) for j in range(n_comp)]
         # pad so every dynamic_slice below fits unclamped (caps have a 256
@@ -621,55 +386,34 @@ def bin_splats(
         perm = jnp.concatenate(
             [perm, jnp.zeros((max(c for _, c in widths),), jnp.int32)])
 
-        # ONE aligned row-gather per compacted tier, not a dozen scattered
-        # element gathers: the per-splat values every tier needs (footprint
-        # rect, depth, field payload columns, optional cull rows) pack into
-        # a [n, R16] f32 row matrix first (int/u32 columns bitcast so the
-        # pack is exact), so each tier pays a single 64-byte-row gather
-        # (~5-7 ns/row on v5e) instead of ~10 element gathers (~12 ns/elem
-        # measured as a +35 ms forward regression at the 1M bench).
-        def _to_f32(a):
-            if a.dtype in (jnp.int32, jnp.uint32):
-                return jax.lax.bitcast_convert_type(a, jnp.float32)
-            return a
+        # ONE row gather per compacted tier instead of one element gather
+        # per column: the per-splat values every tier needs (footprint
+        # rect, depth, optional cull rows) pack into a [n, R8] f32 row
+        # matrix first (int columns bitcast so the pack is exact).
         gcols = [x0, y0, rw, ntg_full, splats.depth]
-        gcols += list(field_cols)
         if rows_all is not None:
             gcols += list(rows_all)
         rowpad = -len(gcols) % 8
         packed_rows = jnp.stack(
-            [_to_f32(a) for a in gcols]
+            [jax.lax.bitcast_convert_type(a, jnp.float32)
+             if a.dtype == jnp.int32 else a for a in gcols]
             + [jnp.zeros((n,), jnp.float32)] * rowpad, axis=1)
 
-        comp_idx = []
-        comp_widths = []
-        comp_offsets = []
         offset = jnp.int32(0)
         for j, (w_j, cap_j) in enumerate(widths):
-            comp_offsets.append(offset)
             n_sel = class_counts[j]
             idx_j = jax.lax.dynamic_slice(perm, (offset,), (cap_j,))
             valid_j = jnp.arange(cap_j) < n_sel
             idx_j = jnp.where(valid_j, idx_j, 0)
             offset = offset + n_sel
 
-            g = packed_rows[idx_j]                        # [cap_j, R16]
-            cols = {}
-            for k, a in enumerate(gcols):
-                col = g[:, k]
-                if a.dtype in (jnp.int32, jnp.uint32):
-                    col = jax.lax.bitcast_convert_type(col, a.dtype)
-                cols[k] = col
-            x0_j, y0_j, rw_j = cols[0], cols[1], cols[2]
-            ntg_sel = cols[3]
-            depth_j = cols[4]
-            fields_j = [cols[5 + k] for k in range(len(field_cols))]
-            if rows_all is not None:
-                rows_j = tuple(
-                    cols[5 + len(field_cols) + k]
-                    for k in range(len(rows_all)))
-            else:
-                rows_j = None
+            g = packed_rows[idx_j]                        # [cap_j, R8]
+            x0_j, y0_j, rw_j, ntg_sel = (
+                jax.lax.bitcast_convert_type(g[:, k], jnp.int32)
+                for k in range(4))
+            depth_j = g[:, 4]
+            rows_j = (tuple(g[:, 5 + k] for k in range(len(rows_all)))
+                      if rows_all is not None else None)
 
             ntg_j = jnp.where(valid_j, jnp.minimum(ntg_sel, w_j), 0)
             tile_j, live_j = slot_tiles(
@@ -677,57 +421,23 @@ def bin_splats(
             )
             gidx_j = jnp.broadcast_to(idx_j[None, :], (w_j, cap_j))
             tiers.append((tile_j, live_j, gidx_j, depth_j))
-            for part, pj in zip(payload_parts,
-                                tier_payloads(fields_j, tile_j)):
-                part.append(pj)
             overflow = overflow + jnp.maximum(n_sel - cap_j, 0)
             num_pairs = num_pairs + jnp.sum(live_j.astype(jnp.int32))
-            comp_idx.append(idx_j)
-            comp_widths.append(w_j)
-            prev_w = w_j
-
-        field_payloads = tuple(
-            jnp.concatenate(part) for part in payload_parts)
-        tier_a_width = d_a
-        comp_idx = tuple(comp_idx)
-        comp_widths = tuple(comp_widths)
-        comp_perm = perm
-        comp_offsets = jnp.stack(comp_offsets)
     else:
         ntg = jnp.minimum(ntg_full, d)
         tile_id, live = slot_tiles(x0, y0, rw, ntg, d, rows=rows_all)
         gidx = jnp.broadcast_to(
             jnp.arange(n, dtype=jnp.int32)[None, :], (d, n)
         )
-        overflow = jnp.sum(_over.astype(jnp.int32))
         num_pairs = jnp.sum(live.astype(jnp.int32))
         tiers = [(tile_id, live, gidx, splats.depth)]
-        field_payloads = tuple(tier_payloads(field_cols, tile_id))
-        tier_a_width = d
-        comp_idx = ()
-        comp_widths = ()
-        comp_perm = None
-        comp_offsets = None
 
-    (sorted_gidx, sorted_slot, sorted_fields, tile_start, tile_count,
-     num_pairs, overflow, pair_cap) = sort_pair_arrays(
-        tiers, field_payloads, num_tiles, n, num_pairs, overflow, config,
-        with_gidx=not carry_fields)
-
+    sorted_gidx, tile_start, tile_count, num_pairs, overflow = (
+        sort_pair_arrays(tiers, num_tiles, n, num_pairs, overflow, config))
     return TileBins(
         sorted_gidx=sorted_gidx,
-        sorted_fields=tuple(sorted_fields) if carry_fields else None,
         tile_start=tile_start,
         tile_count=tile_count,
         num_pairs=num_pairs,
         overflow=overflow,
-        sorted_slot=sorted_slot,
-        comp_idx=comp_idx,
-        comp_perm=comp_perm,
-        comp_offsets=comp_offsets,
-        tier_a_width=tier_a_width,
-        comp_widths=comp_widths,
-        pair_cap=pair_cap,
-        fields_packed=carry_fields and config.pack_fields,
-        mean_packed=pack_mean,
     )

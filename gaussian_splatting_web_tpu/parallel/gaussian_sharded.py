@@ -52,15 +52,15 @@ from ..ops.projection import project_gaussians
 from ..ops.rasterize import assemble_image, composite_tiles_auto
 from ..train.loss import photometric_loss
 from ..train.trainer import TrainState
-from .mesh import AXES
+from .mesh import AXES, flat_psum
 from .render_sharded import _padded_tile_ids
 
 
 def ring_all_gather(tree, axis: str, n_shards: int):
     """Reassemble full arrays from per-device shards with an explicit
-    ppermute ring (the collective all_gather would lower to on ICI, but
-    written as a scan so each hop can overlap downstream per-block work,
-    and so its transpose — the cotangent ring — is explicit).
+    ppermute ring (an all_gather written as a scan so each hop can overlap
+    downstream per-block work, and so its transpose — the cotangent ring —
+    is explicit).
 
     Every leaf [n_s, ...] → [S·n_s, ...] in global shard order, identical
     on all devices of `axis`."""
@@ -261,10 +261,10 @@ def banded_candidates_a2a(splats_shard, width: int, height: int, s: int,
     module notes have promised since round 2): instead of walking all S
     shards around the ring and re-compacting n_s rows per hop (O(N) sort
     work per device per image — the 2.76× 'band' stage inflation in
-    SCALING_DECOMP.json), each device classifies its OWN splats by
+    virtual-mesh decomposition), each device classifies its OWN splats by
     destination band ONCE (a single stable sort of bmax·n_s elements,
     O(N/S) per device, flat in S) and a single `all_to_all` delivers each
-    band's candidate block over ICI.
+    band's candidate block.
 
     A splat's footprint rows [y0, y0+rh) touch bands b0..b1; each owned
     splat gets `bmax` destination slots (bands past bmax are dropped and
@@ -398,8 +398,10 @@ def render_gaussian_sharded_banded(
             platform=mesh_platform)
         gathered = jax.lax.all_gather(
             tiles.reshape(per_pad, ts * ts, 4), AXES.tile, tiled=False)
-        overflow = jax.lax.psum(over, AXES.tile)
-        return gathered, overflow
+        # the overflow psum waits for the gather: one collective order on
+        # every device (mesh.flat_psum)
+        gathered, over = jax.lax.optimization_barrier((gathered, over))
+        return gathered, jax.lax.psum(over, AXES.tile)
 
     gathered, overflow = run(cloud, camera, band_tiles)
     # bands are contiguous: [S, per_pad, ...] → slice each band's real
@@ -447,7 +449,6 @@ def make_gaussian_sharded_train_step(
     n_data = mesh.shape[AXES.data]
     ts = config.tile_size
     mesh_platform = mesh.devices.flat[0].platform
-    del n_data
     if banded:
         if n_gaussians is None:
             raise ValueError("banded=True requires n_gaussians")
@@ -516,11 +517,16 @@ def make_gaussian_sharded_train_step(
             local_loss, has_aux=True)(
             params_shard, cameras, targets, my_tiles
         )
-        loss = jax.lax.pmean(jax.lax.psum(loss, AXES.tile), AXES.data)
-        over = jax.lax.psum(jax.lax.psum(over, AXES.tile), AXES.data)
+        # The barrier holds the scalar reductions until the backward (and
+        # its ring collectives) is done, and each reduction below feeds
+        # the next: every device issues the collectives in one order
+        # (mesh.flat_psum says why that matters).
+        loss, over, g = jax.lax.optimization_barrier((loss, over, g))
+        loss, over = flat_psum((loss, over), AXES.tile)
         # parameter grads are shard-local already (ring transpose); only
         # average over the data-parallel camera batch
-        g = jax.lax.pmean(g, AXES.data)
+        loss, over, g = flat_psum((loss, over, g), AXES.data)
+        loss, g = jax.tree_util.tree_map(lambda x: x / n_data, (loss, g))
         return loss, over, g
 
     @jax.jit

@@ -7,13 +7,13 @@ This module is the new capability: a 2D logical mesh
     ('data', 'tile')
 
 where 'data' shards the camera batch (data parallelism over views) and
-'tile' shards image tiles within a view (the TPU analogue of the reference's
-per-pixel fragment-shader parallelism, i.e. context/sequence parallelism for
+'tile' shards image tiles within a view (the multi-device analogue of the
+reference's per-pixel fragment-shader parallelism, i.e. context/sequence parallelism for
 a rasterizer). Gaussians are replicated in round 1; parameter gradients are
 psum-reduced over both axes.
 
-Collectives ride ICI inside a host and DCN across hosts; keeping 'tile' the
-minor (fast-varying) axis places tile exchange on ICI neighbors.
+The mesh shape follows the algorithm alone: on one host every card reaches
+every other at the same rate, so no axis order is chosen for topology.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -72,3 +73,23 @@ def tile_sharding(mesh: Mesh) -> NamedSharding:
 def batch_sharding(mesh: Mesh) -> NamedSharding:
     """Shard the leading (camera-batch) axis across 'data'."""
     return NamedSharding(mesh, P(AXES.data))
+
+
+def flat_psum(tree, axes):
+    """psum every leaf of `tree` over `axes` as ONE all-reduce of the
+    raveled tree (leaves come back in their own dtypes).
+
+    Inside a shard_map step, collectives with no data dependency between
+    them may be issued in different orders on different devices. XLA's
+    CPU runtime runs such independent collectives concurrently on a
+    shared thread pool, and when every pool thread is blocked in a
+    collective whose peers are waiting in another one, the step deadlocks
+    until the rendezvous timeout aborts the process. One collective per
+    reduction, chained by data dependencies, leaves one order only."""
+    from jax.flatten_util import ravel_pytree
+
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    flat, unravel = ravel_pytree([x.astype(jnp.float32) for x in leaves])
+    out = unravel(jax.lax.psum(flat, axes))
+    return jax.tree_util.tree_unflatten(
+        treedef, [o.astype(x.dtype) for o, x in zip(out, leaves)])

@@ -9,9 +9,8 @@ The whole step runs inside one shard_map over the ('data', 'tile') mesh:
   * the photometric loss is computed on the gathered image, pre-scaled by
     1/|tile axis| so the all_gather transpose (a psum-scatter of cotangents)
     yields exact gradients;
-  * parameter gradients are `psum`ed over 'tile' and `pmean`ed over 'data' —
-    the gradient all-reduce of BASELINE.md config 5. XLA's latency-hiding
-    scheduler overlaps these collectives with the remaining backward work.
+  * parameter gradients and the loss are summed over 'tile' and averaged
+    over 'data' in one all-reduce over both axes (mesh.flat_psum).
 
 Gaussian parameters are replicated in round 1 (per SURVEY.md §2.3: replicate
 first, shard-gather ring exchange later).
@@ -35,7 +34,7 @@ from ..ops.projection import project_gaussians
 from ..ops.rasterize import assemble_image, composite_tiles_auto
 from ..train.loss import photometric_loss
 from ..train.trainer import TrainState
-from .mesh import AXES
+from .mesh import AXES, flat_psum
 from .render_sharded import _padded_tile_ids
 
 
@@ -92,8 +91,10 @@ def make_sharded_train_step(
     )
     def grads_shard(params, cameras, targets, my_tiles):
         loss, g = jax.value_and_grad(local_loss)(params, cameras, targets, my_tiles)
-        loss = jax.lax.pmean(jax.lax.psum(loss, AXES.tile), AXES.data)
-        g = jax.lax.pmean(jax.lax.psum(g, AXES.tile), AXES.data)
+        # one all-reduce over both axes: sum over 'tile', mean over 'data'
+        loss, g = jax.tree_util.tree_map(
+            lambda x: x / n_data,
+            flat_psum((loss, g), (AXES.data, AXES.tile)))
         return loss, g
 
     @jax.jit

@@ -151,7 +151,7 @@ def render_reference(
     # shaders.ts:66-68 + radix sort)
     order = np.argsort(np.where(valid, depth, np.inf), kind="stable")
 
-    # The blend stage accumulates in float32 — the INRIA CUDA (and TPU
+    # The blend stage accumulates in float32 — the INRIA CUDA (and GPU
     # kernel) working precision — so the knife-edge transmittance-threshold
     # comparisons pick the same contributor set as the accelerator path.
     mean2d32 = mean2d.astype(np.float32)

@@ -155,7 +155,8 @@ def densify_and_prune(
         noise = jax.random.normal(sub, (c, 3))
         R = quat_to_rotmat(child.quat)
         offset = jnp.einsum(
-            "nij,nj->ni", R, noise * jnp.exp(child.log_scale)
+            "nij,nj->ni", R, noise * jnp.exp(child.log_scale),
+            precision=jax.lax.Precision.HIGHEST,
         )
         return dataclasses.replace(
             child,

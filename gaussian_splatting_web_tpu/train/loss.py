@@ -4,8 +4,8 @@ The reference has no training at all (SURVEY.md intro); this implements the
 standard 3DGS objective L = (1-λ)·L1 + λ·(1 - SSIM)/2 with λ = 0.2.
 
 SSIM uses an 11×11 Gaussian window (σ = 1.5) realized as a separable
-depthwise convolution — two `lax.conv_general_dilated` calls whose channel
-dimension XLA maps cleanly onto the VPU.
+depthwise convolution — two `lax.conv_general_dilated` calls at
+precision=HIGHEST (no TF32 on a GPU).
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def _blur(img: jnp.ndarray, window: jnp.ndarray) -> jnp.ndarray:
     kw = jnp.asarray(window).reshape(1, 1, 1, -1)
     dn = ("NCHW", "OIHW", "NCHW")
     opts = dict(window_strides=(1, 1), padding="SAME",
-                dimension_numbers=dn, feature_group_count=c)
+                dimension_numbers=dn, feature_group_count=c,
+                precision=jax.lax.Precision.HIGHEST)
     x = jax.lax.conv_general_dilated(x, jnp.tile(kh, (c, 1, 1, 1)), **opts)
     x = jax.lax.conv_general_dilated(x, jnp.tile(kw, (c, 1, 1, 1)), **opts)
     return x.transpose(0, 2, 3, 1)[0]

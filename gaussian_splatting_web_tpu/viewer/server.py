@@ -1,7 +1,7 @@
 """Interactive web viewer: stdlib HTTP server + HTML/JS orbit frontend.
 
 The "web" half of the reference (index.html UI shell + src/index.ts wiring +
-src/camera.ts InteractiveCamera) rebuilt against the TPU renderer. Behaviors
+src/camera.ts InteractiveCamera) rebuilt against the JAX renderer. Behaviors
 reproduced 1:1 (reference citations):
 
   * pointer drag rotate / right-drag pan / wheel zoom (camera.ts:331-396);
@@ -59,7 +59,7 @@ _PAGE = """<!DOCTYPE html>
 <div id="popup"><div>Loading .ply, this may take from seconds to a couple
  of minutes…</div><div id="bar"><div id="barfill"></div></div></div>
 <div id="side">
- <h3>tpu splat viewer</h3>
+ <h3>splat viewer</h3>
  <div id="fps">fps: –</div>
  <div id="stats"></div>
  <label>.ply scene <input type="file" id="plyPick" accept=".ply"></label>

@@ -8,9 +8,9 @@ import numpy as np
 
 from gaussian_splatting_web_tpu.core import camera as cam
 from gaussian_splatting_web_tpu.io.cameras import load_cameras_json
-from tests.conftest import REFERENCE_PUBLIC
+from tests.conftest import DATA_DIR
 
-CAM_JSON = os.path.join(REFERENCE_PUBLIC, "cam.json")
+CAM_JSON = os.path.join(DATA_DIR, "cam.json")
 
 
 def test_projection_inria_structure():

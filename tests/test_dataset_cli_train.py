@@ -153,11 +153,8 @@ def test_cli_render_gaussian_sharded_banded(tmp_path, capsys):
 
     out2 = tmp_path / "renders_single"
     main(args[:4] + [str(out2)] + args[5:])
-    import imageio.v2 as iio  # noqa: F401 — only if available
+    from gaussian_splatting_web_tpu.utils.image import read_image
 
-    a = np.asarray(__import__("PIL.Image", fromlist=["Image"])
-                   .open(png[0]))
-    b = np.asarray(__import__("PIL.Image", fromlist=["Image"])
-                   .open(list(out2.iterdir())[0]))
-    np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
-                               atol=2.0)
+    a = read_image(str(png[0])) * 255.0
+    b = read_image(str(list(out2.iterdir())[0])) * 255.0
+    np.testing.assert_allclose(a, b, atol=2.0)

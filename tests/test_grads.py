@@ -15,11 +15,7 @@ from gaussian_splatting_web_tpu.models.gaussian_model import GaussianModel
 from gaussian_splatting_web_tpu.ops.rasterize import render_impl
 from tests.conftest import make_random_cloud
 
-# pack_fields=False: finite differences need a smooth function — the
-# shipped default bf16-rounds conic/rgb/opacity (with a straight-through
-# gradient), which makes sub-quantum FD perturbations meaningless.
-CFG = RenderConfig(max_dup=128, max_per_tile=64, tile_chunk=4,
-                   pack_fields=False, pack_grads=False)
+CFG = RenderConfig(max_dup=128, max_per_tile=64, tile_chunk=4)
 W = H = 32
 
 

@@ -1,5 +1,11 @@
-"""Pallas kernel tests (interpret mode on CPU — same kernel code that runs
-compiled on TPU)."""
+"""Tests of the Triton compositor kernel (ops/triton_raster.py) and the one
+compositor dispatch (ops.rasterize.select_compositor).
+
+On the CPU the kernel runs in Pallas' interpreter (interpret=True: the same
+kernel code that is compiled for the GPU). The `gpu`-marked test compiles
+it for the card and skips elsewhere; chip_smoke.py runs that comparison at
+full size on the card.
+"""
 
 import numpy as np
 import jax
@@ -9,16 +15,16 @@ import pytest
 from gaussian_splatting_web_tpu.config import RenderConfig
 from gaussian_splatting_web_tpu.core import camera as cam
 from gaussian_splatting_web_tpu.ops.projection import project_gaussians
-from gaussian_splatting_web_tpu.ops.rasterize import rasterize_tiles
+from gaussian_splatting_web_tpu.ops.rasterize import (
+    composite_tiles, rasterize_tiles, select_compositor,
+)
 from gaussian_splatting_web_tpu.ops.sort import bin_splats
-from gaussian_splatting_web_tpu.ops.pallas.raster import rasterize_tiles_pallas
-from tests.conftest import make_random_cloud
+from gaussian_splatting_web_tpu.ops.triton_raster import (
+    composite_fields_kernel, composite_tiles_kernel,
+)
+from tests.conftest import assert_images_close, make_random_cloud
 
-# pack_grads=False: these tests pin kernel MATH against the XLA path
-# exactly; the bf16-packed gradient fold (shipped default) is covered
-# by test_packed_grad_fold_tolerance and the TPU-side parity gate.
-CFG = RenderConfig(max_dup=64, max_per_tile=256, tile_chunk=4,
-                   pack_grads=False)
+CFG = RenderConfig(max_dup=64, max_per_tile=256, tile_chunk=4)
 
 
 def _setup(n=60, seed=0, sh_degree=1, w=64, h=48, cfg=CFG):
@@ -29,234 +35,194 @@ def _setup(n=60, seed=0, sh_degree=1, w=64, h=48, cfg=CFG):
     return s, b, w, h
 
 
+def _all_tiles(w, h, cfg):
+    gx, gy = cfg.grid_size(w, h)
+    n = gx * gy
+    padded = -(-n // cfg.tile_chunk) * cfg.tile_chunk
+    return jnp.arange(padded, dtype=jnp.int32) % n, gx
+
+
+def _both(s, b, w, h, cfg):
+    ids, gx = _all_tiles(w, h, cfg)
+    ref = composite_tiles(s, b, ids, gx, cfg)
+    out = composite_tiles_kernel(s, b, ids, gx, cfg, interpret=True)
+    return np.asarray(out), np.asarray(ref)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_pallas_matches_xla(seed):
     s, b, w, h = _setup(seed=seed)
-    rgb0, a0 = rasterize_tiles(s, b, w, h, CFG)
-    rgb1, a1 = rasterize_tiles_pallas(s, b, w, h, CFG, True)
-    # 5e-5: the kernel evaluates the Gaussian quadratic as a rank-6 bilinear
-    # form (different f32 association than the direct conic evaluation)
-    np.testing.assert_allclose(np.asarray(rgb1), np.asarray(rgb0), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(a1), np.asarray(a0), atol=2e-4)
+    out, ref = _both(s, b, w, h, CFG)
+    assert out.shape == ref.shape
+    assert_images_close(out.reshape(-1, 16, 4), ref.reshape(-1, 16, 4))
+    assert float(ref[..., 3].max()) > 0.1          # the scene is visible
 
 
-def test_pallas_early_termination_scene():
-    """Opaque stacked scene exercises the early-exit path."""
-    n = 40
+def _opaque_stack(n=40):
     cloud = make_random_cloud(n, seed=5, sh_degree=0)
     rng = np.random.default_rng(7)
     cloud.xyz = np.concatenate(
-        [rng.normal(scale=0.05, size=(n, 2)), rng.uniform(-2, 2, (n, 1))], axis=1
-    ).astype(np.float32)
+        [rng.normal(scale=0.05, size=(n, 2)), rng.uniform(-2, 2, (n, 1))],
+        axis=1).astype(np.float32)
     cloud.opacity_logit = np.full((n,), 6.0, dtype=np.float32)
     cloud.log_scale = np.full((n, 3), -0.7, dtype=np.float32)
+    return cloud
+
+
+def test_pallas_early_termination_scene():
+    """Opaque stacked scene: every pixel of the centre tiles crosses the
+    1e-4 transmittance threshold, so the kernel's while_loop exits before
+    the end of those tiles' lists."""
     w = h = 48
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
-    s = project_gaussians(cloud, camera, w, h, CFG)
+    s = project_gaussians(_opaque_stack(), camera, w, h, CFG)
     b = bin_splats(s, w, h, CFG)
-    rgb0, _ = rasterize_tiles(s, b, w, h, CFG)
-    rgb1, _ = rasterize_tiles_pallas(s, b, w, h, CFG, True)
-    np.testing.assert_allclose(np.asarray(rgb1), np.asarray(rgb0), atol=2e-4)
+    out, ref = _both(s, b, w, h, CFG)
+    assert float(ref[..., 3].max()) > 0.999         # saturated pixels
+    assert_images_close(out.reshape(-1, 16, 4), ref.reshape(-1, 16, 4))
 
 
 def test_pallas_grad_through_custom_vjp():
+    """The custom VJP is the XLA compositor's VJP on the same bins."""
     s, b, w, h = _setup(n=20)
+    ids, gx = _all_tiles(w, h, CFG)
+    wts = jnp.linspace(0.5, 1.5, 4)
 
-    def loss_pallas(s):
-        rgb, a = rasterize_tiles_pallas(s, b, w, h, CFG, True)
-        return jnp.sum(rgb**2)
+    def loss(fn):
+        return lambda s: jnp.sum(fn(s) ** 2 * wts)
 
-    def loss_xla(s):
-        rgb, a = rasterize_tiles(s, b, w, h, CFG)
-        return jnp.sum(rgb**2)
-
-    g1 = jax.grad(loss_pallas, allow_int=True)(s)
-    g0 = jax.grad(loss_xla, allow_int=True)(s)
+    g1 = jax.grad(loss(lambda s: composite_tiles_kernel(
+        s, b, ids, gx, CFG, interpret=True)), allow_int=True)(s)
+    g0 = jax.grad(loss(lambda s: composite_tiles(s, b, ids, gx, CFG)),
+                  allow_int=True)(s)
     for name in ("mean2d", "conic", "rgb", "opacity"):
         np.testing.assert_allclose(
             np.asarray(getattr(g1, name)), np.asarray(getattr(g0, name)),
-            atol=5e-4, err_msg=name,  # bf16x2 cumsum: ~1e-4 weight noise
-        )
+            atol=1e-6, err_msg=name)
 
 
 def test_rasterize_pallas_binned_matches_xla():
-    """The fused bin+composite entry (fields carried as sort payloads) must
-    match the portable path, image and gradients."""
-    from gaussian_splatting_web_tpu.ops.pallas.raster import rasterize_pallas
-
+    """The shipped binning (packed depth key, tiers, pair cap) feeding the
+    kernel gives the XLA compositor's image."""
     cfg = RenderConfig(max_dup=16, max_per_tile=256, tile_chunk=4,
-                       depth_bits=19, tier_split=4, gather_cap_factor=3.0,
-                       pack_grads=False)
-    cloud = make_random_cloud(60, seed=3, sh_degree=1)
-    w, h = 64, 48
-    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
-    s = project_gaussians(cloud, camera, w, h, cfg)
-    b = bin_splats(s, w, h, cfg)
-    rgb0, a0 = rasterize_tiles(s, b, w, h, cfg)
-    rgb1, a1, stats = rasterize_pallas(s, w, h, cfg, True)
-    assert int(stats["num_pairs"]) == int(b.num_pairs)
-    np.testing.assert_allclose(np.asarray(rgb1), np.asarray(rgb0), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(a1), np.asarray(a0), atol=2e-4)
-
-    def loss_pallas(s):
-        rgb, a, _ = rasterize_pallas(s, w, h, cfg, True)
-        return jnp.sum(rgb**2) + jnp.sum(a)
-
-    def loss_xla(s):
-        rgb, a = rasterize_tiles(s, b, w, h, cfg)
-        return jnp.sum(rgb**2) + jnp.sum(a)
-
-    g1 = jax.grad(loss_pallas, allow_int=True)(s)
-    g0 = jax.grad(loss_xla, allow_int=True)(s)
-    for name in ("mean2d", "conic", "rgb", "opacity"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(g1, name)), np.asarray(getattr(g0, name)),
-            atol=5e-4, err_msg=name,
-        )
-
-
-def test_bin_splats_carry_fields_matches_gather():
-    """sorted_fields payloads must equal a post-sort gather of the fields —
-    exactly in the f32 mode, and after the documented bf16 round-trip of
-    conic/rgb/opacity in the packed (shipped-default) mode."""
-    from gaussian_splatting_web_tpu.ops.sort import unpack_bf16_pair
-
-    cloud = make_random_cloud(80, seed=9, sh_degree=0)
-    w, h = 96, 64
-    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
-    for pack in (False, True):
-        cfg = RenderConfig(max_dup=16, depth_bits=19, tier_split=2,
-                           gather_cap_factor=3.0, pack_fields=pack)
-        s = project_gaussians(cloud, camera, w, h, cfg)
-        b = bin_splats(s, w, h, cfg, carry_fields=True)
-        # gidx payload is dropped in carry mode; recover pair order from an
-        # exact-field binning of the same splats for the comparison
-        b_ref = bin_splats(s, w, h, cfg.replace(pack_fields=False), False)
-        assert b.sorted_gidx is None
-        assert b.fields_packed == pack
-        assert b.sorted_fields is not None
-        # packed default also packs mean2d tile-relative (pack_mean16):
-        # 5 payloads; exact mode keeps the 9 f32 arrays
-        assert len(b.sorted_fields) == (5 if pack else 9)
-        assert b.mean_packed == pack
-        bfq = (lambda x: np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
-                                    .astype(jnp.float32)))
-        cols = np.stack(
-            [np.asarray(s.mean2d[:, 0]), np.asarray(s.mean2d[:, 1]),
-             bfq(s.conic[:, 0]) if pack else np.asarray(s.conic[:, 0]),
-             bfq(s.conic[:, 1]) if pack else np.asarray(s.conic[:, 1]),
-             bfq(s.conic[:, 2]) if pack else np.asarray(s.conic[:, 2]),
-             bfq(s.rgb[:, 0]) if pack else np.asarray(s.rgb[:, 0]),
-             bfq(s.rgb[:, 1]) if pack else np.asarray(s.rgb[:, 1]),
-             bfq(s.rgb[:, 2]) if pack else np.asarray(s.rgb[:, 2]),
-             bfq(s.opacity) if pack else np.asarray(s.opacity)], axis=1)
-        gidx = np.asarray(b_ref.sorted_gidx)
-        start, count = np.asarray(b.tile_start), np.asarray(b.tile_count)
-        live = np.zeros(gidx.shape[0], bool)
-        for t in range(start.shape[0]):
-            live[start[t]:start[t] + count[t]] = True
-        want = cols[gidx]                       # [M, 9]
-        if pack:
-            fs = b.sorted_fields
-            # mean payload: u16-pair tile-relative 1/32-px fixed point —
-            # decode with each pair's tile and compare against the
-            # quantized expected coordinates
-            gx = cfg.grid_size(w, h)[0]
-            ts = cfg.tile_size
-            pair_tile = np.zeros(gidx.shape[0], np.int64)
-            for t in range(start.shape[0]):
-                pair_tile[start[t]:start[t] + count[t]] = t
-            u0 = np.asarray(fs[0]).astype(np.uint32)
-            got_mx = (u0 & 0xFFFF).astype(np.float32) / 32.0 - 1024.0
-            got_my = (u0 >> 16).astype(np.float32) / 32.0 - 1024.0
-            tx = (pair_tile % gx).astype(np.float32) * ts
-            ty = (pair_tile // gx).astype(np.float32) * ts
-            q16 = lambda rel: np.clip(
-                np.round((rel + 1024.0) * 32.0), 0, 65535
-            ).astype(np.float32) / 32.0 - 1024.0
-            np.testing.assert_array_equal(
-                got_mx[live],
-                q16(want[:, 0].astype(np.float32) - tx)[live])
-            np.testing.assert_array_equal(
-                got_my[live],
-                q16(want[:, 1].astype(np.float32) - ty)[live])
-            rows = []
-            for u in fs[1:]:
-                hi, lo = unpack_bf16_pair(u)
-                rows += [np.asarray(hi), np.asarray(lo)]
-            got = np.stack(rows[:7], axis=1)
-            # packed order: ca, cb, cc|op, r|g, b — reorder to cols[2:]
-            got = got[:, [0, 1, 2, 4, 5, 6, 3]]
-            np.testing.assert_array_equal(got[live], want[live][:, 2:])
-        else:
-            got = np.stack([np.asarray(f) for f in b.sorted_fields], axis=1)
-            np.testing.assert_array_equal(got[live], want[live])
+                       depth_bits=19, tier_split=2, gather_cap_factor=3.0)
+    s, b, w, h = _setup(n=60, seed=3, cfg=cfg)
+    out, ref = _both(s, b, w, h, cfg)
+    assert_images_close(out.reshape(-1, 16, 4), ref.reshape(-1, 16, 4))
 
 
 def test_subset_kernel_matches_composite_tiles():
-    """composite_tiles_subset_pallas (the shard_map tile-subset entry) ==
-    the XLA compositor on the same tile subset, value and gradient."""
-    from gaussian_splatting_web_tpu.ops.rasterize import composite_tiles
-    from gaussian_splatting_web_tpu.ops.pallas.raster import (
-        composite_tiles_subset_pallas,
-    )
-
+    """An arbitrary strided tile subset (one shard's deal) composites the
+    same tiles as the XLA compositor, value and gradient."""
+    cfg = CFG.replace(tile_chunk=2)
     cloud = make_random_cloud(60, seed=4, sh_degree=1)
     w, h = 64, 48
-    cfg = CFG.replace(tile_chunk=2)  # subset length must be chunk-aligned
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
     gx, gy = cfg.grid_size(w, h)
-    # a strided subset, like one shard's deal
-    tile_ids = jnp.arange(0, gx * gy, 2, dtype=jnp.int32)
+    tile_ids = jnp.arange(1, gx * gy, 2, dtype=jnp.int32)
 
-    def f_pallas(cl):
-        s = project_gaussians(cl, camera, w, h, cfg)
-        tiles = composite_tiles_subset_pallas(s, tile_ids, w, h, cfg, True)
-        return tiles
+    def f(kernel):
+        def run(cl):
+            s = project_gaussians(cl, camera, w, h, cfg)
+            b = bin_splats(s, w, h, cfg)
+            if kernel:
+                return composite_tiles_kernel(s, b, tile_ids, gx, cfg, True)
+            return composite_tiles(s, b, tile_ids, gx, cfg)
+        return run
 
-    def f_xla(cl):
-        s = project_gaussians(cl, camera, w, h, cfg)
-        b = bin_splats(s, w, h, cfg)
-        return composite_tiles(s, b, tile_ids, gx, cfg).reshape(
-            tile_ids.shape[0], -1, 4)
-
-    t_p = f_pallas(cloud)
-    t_x = f_xla(cloud)
-    np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_x), atol=2e-4)
-
+    np.testing.assert_allclose(np.asarray(f(True)(cloud)),
+                               np.asarray(f(False)(cloud)), atol=2e-4)
     ww = jnp.linspace(0.3, 1.0, 4)
-    g_p = jax.grad(lambda cl: jnp.sum(f_pallas(cl) * ww))(cloud)
-    g_x = jax.grad(lambda cl: jnp.sum(f_xla(cl) * ww))(cloud)
-    for a, b_ in zip(jax.tree_util.tree_leaves(g_p),
+    g_k = jax.grad(lambda cl: jnp.sum(f(True)(cl) * ww))(cloud)
+    g_x = jax.grad(lambda cl: jnp.sum(f(False)(cl) * ww))(cloud)
+    for a, b_ in zip(jax.tree_util.tree_leaves(g_k),
                      jax.tree_util.tree_leaves(g_x)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b_),
-                                   rtol=2e-3, atol=2e-4)
+                                   rtol=1e-5, atol=1e-6)
 
 
-def test_packed_grad_fold_tolerance():
-    """The bf16-packed gradient fold (shipped default, pack_grads=True)
-    must track the exact-f32 fold to ~1% scale-relative error (one bf16
-    rounding per pair gradient, ≤ a few pairs summed per splat)."""
-    from gaussian_splatting_web_tpu.ops.pallas.raster import rasterize_pallas
+@pytest.mark.parametrize("max_per_tile", [20, 44])
+def test_kernel_cap_and_padding(max_per_tile):
+    """A max_per_tile that the kernel's CHUNK does not divide: the field
+    rows are padded to whole chunks, and every tile's list is cut at
+    max_per_tile exactly as the XLA compositor cuts it."""
+    from gaussian_splatting_web_tpu.ops.triton_raster import CHUNK
 
-    base = dict(max_dup=16, max_per_tile=256, tile_chunk=4, depth_bits=19,
-                tier_split=4, gather_cap_factor=3.0)
-    cloud = make_random_cloud(80, seed=11, sh_degree=1)
-    w, h = 64, 48
-    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
-    cfg_exact = RenderConfig(pack_grads=False, **base)
-    cfg_packed = RenderConfig(pack_grads=True, **base)
-    s = project_gaussians(cloud, camera, w, h, cfg_exact)
+    assert max_per_tile % CHUNK
+    cfg = RenderConfig(max_dup=64, max_per_tile=max_per_tile, tile_chunk=4)
+    s, b, w, h = _setup(n=200, seed=8, cfg=cfg)
+    assert int(b.tile_count.max()) > max_per_tile     # the cap binds
+    out, ref = _both(s, b, w, h, cfg)
+    assert_images_close(out.reshape(-1, 16, 4), ref.reshape(-1, 16, 4))
 
-    def loss(s, cfg):
-        rgb, a, _ = rasterize_pallas(s, w, h, cfg, True)
-        return jnp.sum(rgb**2) + jnp.sum(a)
 
-    g_e = jax.grad(loss, allow_int=True)(s, cfg_exact)
-    g_p = jax.grad(loss, allow_int=True)(s, cfg_packed)
-    for name in ("mean2d", "conic", "rgb", "opacity"):
-        a = np.asarray(getattr(g_p, name), np.float64)
-        b = np.asarray(getattr(g_e, name), np.float64)
-        scale = np.abs(b).max() + 1e-12
-        rel = np.abs(a - b) / scale
-        assert rel.max() < 1e-2, (name, rel.max())
+def test_kernel_output_layout():
+    """composite_fields_kernel returns [T, 4, P] rows (r, g, b, alpha);
+    the wrapper turns them into [T, ts, ts, 4] pixel-major tiles."""
+    s, b, w, h = _setup(n=30, seed=6)
+    ids, gx = _all_tiles(w, h, CFG)
+    from gaussian_splatting_web_tpu.ops.rasterize import pack_sorted_fields
+
+    fields = pack_sorted_fields(s, b, pad=CFG.max_per_tile)
+    rows = composite_fields_kernel(fields, ids, b.tile_start[ids],
+                                   b.tile_count[ids], gx, CFG, True)
+    assert rows.shape == (ids.shape[0], 4, 256)
+    tiles = composite_tiles_kernel(s, b, ids, gx, CFG, interpret=True)
+    assert tiles.shape == (ids.shape[0], 16, 16, 4)
+    np.testing.assert_array_equal(
+        np.asarray(rows).transpose(0, 2, 1).reshape(tiles.shape),
+        np.asarray(tiles))
+
+
+def test_kernel_needs_power_of_two_tiles():
+    cfg = CFG.replace(tile_size=12)
+    s, b, w, h = _setup(n=10, cfg=cfg)
+    ids, gx = _all_tiles(w, h, cfg)
+    with pytest.raises(ValueError, match="power-of-two tile_size"):
+        composite_tiles_kernel(s, b, ids, gx, cfg, interpret=True)
+
+
+@pytest.mark.parametrize("platform,use_pallas,debug,want", [
+    ("cpu", "auto", -1, "xla"),
+    ("cpu", "never", -1, "xla"),
+    ("gpu", "auto", -1, "kernel"),
+    ("gpu", "never", -1, "xla"),
+    ("gpu", "auto", 3, "xla"),
+    ("cpu", "always", -1, ValueError),
+    ("gpu", "always", -1, ValueError),
+    ("metal", "auto", -1, ValueError),
+    ("gpu", "sometimes", -1, ValueError),
+])
+def test_select_compositor(platform, use_pallas, debug, want):
+    cfg = RenderConfig(use_pallas=use_pallas, debug_selected=debug)
+    if isinstance(want, type):
+        with pytest.raises(want):
+            select_compositor(platform, cfg)
+    else:
+        assert select_compositor(platform, cfg) == want
+
+
+def test_rasterize_tiles_takes_xla_path_on_cpu():
+    """On the CPU backend the default dispatch is the XLA compositor: the
+    traced program holds no Pallas call."""
+    s, b, w, h = _setup(n=10)
+    jaxpr = jax.make_jaxpr(
+        lambda s: rasterize_tiles(s, b, w, h, CFG))(s)
+    assert "pallas_call" not in str(jaxpr)
+    jaxpr_k = jax.make_jaxpr(
+        lambda s: rasterize_tiles(s, b, w, h, CFG, platform="gpu"))(s)
+    assert "pallas_call" in str(jaxpr_k)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu(gpu_device):
+    """The kernel compiled for the card (no interpreter) against the XLA
+    compositor on the same bins."""
+    with jax.default_device(gpu_device):
+        s, b, w, h = _setup(n=200, seed=1)
+        ids, gx = _all_tiles(w, h, CFG)
+        out = jax.jit(lambda s, b: composite_tiles_kernel(
+            s, b, ids, gx, CFG))(s, b)
+        ref = jax.jit(lambda s, b: composite_tiles(s, b, ids, gx, CFG))(s, b)
+    assert_images_close(np.asarray(out).reshape(-1, 16, 4),
+                        np.asarray(ref).reshape(-1, 16, 4))

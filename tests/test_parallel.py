@@ -1,5 +1,5 @@
-"""Multi-device tests on the 8-device virtual CPU mesh (SURVEY.md §4:
-the TPU-world fake backend for distributed tests)."""
+"""Multi-device tests on the 8-device virtual CPU mesh (SURVEY.md §4: the
+standard stand-in for several accelerators in distributed tests)."""
 
 import numpy as np
 import jax
@@ -325,10 +325,35 @@ def test_multihost_init_noop_without_coordinator(monkeypatch):
         initialize_multihost,
     )
 
-    for var in ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-                "MEGASCALE_COORDINATOR_ADDRESS"):
-        monkeypatch.delenv(var, raising=False)
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     assert initialize_multihost() is False  # single-process: no-op
+
+
+def test_multihost_init_reads_only_the_jax_coordinator(monkeypatch):
+    """Host lists of other cluster managers start no distributed init;
+    only a coordinator address (argument or JAX_COORDINATOR_ADDRESS)
+    does, and it reaches jax.distributed.initialize with the process
+    count and id."""
+    import jax as _jax
+
+    from gaussian_splatting_web_tpu.parallel.multihost import (
+        initialize_multihost,
+    )
+
+    calls = []
+    monkeypatch.setattr(_jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.setenv("MEGASCALE_COORDINATOR_ADDRESS", "h0:1234")
+    assert initialize_multihost() is False
+    assert calls == []
+
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:12345")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    assert initialize_multihost() is True
+    assert calls == [{"coordinator_address": "localhost:12345",
+                      "num_processes": 2, "process_id": 1}]
 
 
 def test_run_with_restarts_retries_then_succeeds():

@@ -1,5 +1,6 @@
-"""PLY IO tests against the reference's checked-in scenes and semantics
-(src/ply.ts; scenes under /root/reference/public, SURVEY.md §2.1 #17)."""
+"""PLY IO tests against the reference's semantics (src/ply.ts) on small
+scenes committed under tests/data (written by tests/data/make_fixtures.py
+with io.ply.write_ply, at the sizes of the reference's sample scenes)."""
 
 import io
 import os
@@ -8,11 +9,11 @@ import numpy as np
 import pytest
 
 from gaussian_splatting_web_tpu.io.ply import read_ply, write_ply, _parse_header
-from tests.conftest import REFERENCE_PUBLIC, make_random_cloud
+from tests.conftest import DATA_DIR, make_random_cloud
 
-SIMPLE = os.path.join(REFERENCE_PUBLIC, "simple.ply")
-M3 = os.path.join(REFERENCE_PUBLIC, "m3splat.ply")
-PC_SHORT = os.path.join(REFERENCE_PUBLIC, "pc_short.ply")
+SIMPLE = os.path.join(DATA_DIR, "simple.ply")
+M3 = os.path.join(DATA_DIR, "m3splat.ply")
+PC_SHORT = os.path.join(DATA_DIR, "pc_short.ply")
 
 
 def test_header_simple():

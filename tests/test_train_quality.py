@@ -1,8 +1,8 @@
-"""Training quality regression (VERDICT r1 item 6): from-random-init
-training on a synthetic multi-view capture must reach a PSNR floor.
+"""Training quality regression: from-random-init training on a synthetic
+multi-view capture must reach a PSNR floor.
 
-The full-size curve artifact is produced by tools/train_bench.py
-(train_bench.json); this is the fast CI-sized version of the same recipe.
+This is the CI-sized version of the training recipe; the full-size
+training benchmark cell is to be rebuilt on the GPU (ROADMAP D6).
 """
 
 import numpy as np

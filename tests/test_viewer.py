@@ -79,7 +79,7 @@ def test_viewer_server_roundtrip():
         port = httpd.server_address[1]
         base = f"http://127.0.0.1:{port}"
         with urllib.request.urlopen(base + "/") as r:
-            assert b"tpu splat viewer" in r.read()
+            assert b"splat viewer" in r.read()
         with urllib.request.urlopen(base + "/info") as r:
             info = json.loads(r.read())
             assert info["num_gaussians"] == 8
